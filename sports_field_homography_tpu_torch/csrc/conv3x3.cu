@@ -1,0 +1,148 @@
+// K2: 3x3, pad-1, stride-1 convolution over NHWC as an implicit GEMM,
+// with bias and an optional per-channel BN+ReLU prologue on the input.
+//
+// Replaces: sports_field_homography_tpu/ops/conv3x3_pallas.py::conv3x3
+// (forward with bias and prologue, as composed by
+// ops/double_conv.py::double_conv_eval).  The Pallas kernel's training-only
+// stats epilogue and its second input (the TPU's packed level-1 domain)
+// are not carried over.
+//
+// What bounds it on an H100: arithmetic.  A UNet level-1 conv (64->64 at
+// 360x640, batch 8) is 2*M*9*Cin*Cout = 136 GFLOP over ~0.5 GB of bf16
+// activations, about 290 FLOP per byte: far above what the CUDA cores
+// (67 TFLOP/s f32) can use per byte of HBM bandwidth, so the limit is how
+// fast the FMAs issue.  This first version runs on the CUDA cores, not the
+// tensor cores.
+//
+// Design: GEMM rows are output pixels (M = N*H*W), columns are output
+// channels, the reduction runs over (ky, kx, cin) = 9*Cin -- the row order
+// of the packed (9*Cin, Cout) weight matrix.  The im2col patch is never
+// materialised: each A-tile element is gathered straight from x, zero
+// outside the image, so the padding costs no memory.  The prologue
+// relu((x - mean) * inv + beta) is applied as the element is staged, then
+// rounded to the input dtype (as the Pallas kernel casts back before its
+// dot); padding cells skip it and stay zero.  Accumulation is f32, bias
+// is added in f32, and the output is rounded once to the input dtype.
+#include "tile_gemm.cuh"
+
+namespace sfh {
+namespace {
+
+template <typename T, bool kPrologue>
+__global__ void __launch_bounds__(kThreads)
+conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
+               const float* __restrict__ bias, const float* __restrict__ mean,
+               const float* __restrict__ inv, const float* __restrict__ beta,
+               T* __restrict__ y, int N, int H, int W, int Cin, int Cout) {
+  __shared__ __align__(16) TileSmem s;
+  const int M = N * H * W;
+  const int K = 9 * Cin;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  // A-tile staging: this thread loads reduction column ak for the four
+  // pixel rows am + 16*i.  Their (n, oh, ow) are fixed for the whole loop.
+  const int ak = threadIdx.x % kBK;
+  const int am = threadIdx.x / kBK;
+  int rn[4], rh[4], rw[4];
+  bool rv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + am + 16 * i;
+    rv[i] = m < M;
+    const int mm = rv[i] ? m : 0;
+    rw[i] = mm % W;
+    const int t = mm / W;
+    rh[i] = t % H;
+    rn[i] = t / H;
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    const int k = k0 + ak;
+    const bool kv = k < K;
+    const int tap = kv ? k / Cin : 0;
+    const int ci = kv ? k - tap * Cin : 0;
+    const int dy = tap / 3 - 1;
+    const int dx = tap % 3 - 1;
+    float pm = 0.f, pi = 1.f, pb = 0.f;
+    if (kPrologue && kv) {
+      pm = mean[ci];
+      pi = inv[ci];
+      pb = beta[ci];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ih = rh[i] + dy;
+      const int iw = rw[i] + dx;
+      float v = 0.f;
+      if (kv && rv[i] && ih >= 0 && ih < H && iw >= 0 && iw < W) {
+        v = to_f32(x[(((int64_t)rn[i] * H + ih) * W + iw) * Cin + ci]);
+        if (kPrologue) v = to_f32(from_f32<T>(fmaxf((v - pm) * pi + pb, 0.f)));
+      }
+      s.a[ak][am + 16 * i] = v;
+    }
+    load_b_tile(s, wmat, k0, n0, K, Cout);
+    __syncthreads();
+    mma_tile(s, acc, tx, ty);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int co = n0 + tx * 4 + j;
+      if (co >= Cout) continue;
+      const float b = bias != nullptr ? bias[co] : 0.f;
+      y[(int64_t)m * Cout + co] = from_f32<T>(acc[i][j] + b);
+    }
+  }
+}
+
+template <typename T>
+void launch(const void* x, const void* wmat, const float* bias,
+            const float* mean, const float* inv, const float* beta, void* y,
+            int n, int h, int w, int cin, int cout, cudaStream_t stream) {
+  const int64_t m = (int64_t)n * h * w;
+  dim3 grid((unsigned)((m + kBM - 1) / kBM), (unsigned)((cout + kBN - 1) / kBN));
+  if (mean != nullptr) {
+    conv3x3_kernel<T, true><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(wmat), bias, mean, inv,
+        beta, static_cast<T*>(y), n, h, w, cin, cout);
+  } else {
+    conv3x3_kernel<T, false><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(wmat), bias, nullptr,
+        nullptr, nullptr, static_cast<T*>(y), n, h, w, cin, cout);
+  }
+}
+
+}  // namespace
+}  // namespace sfh
+
+// dtype: 0 = float32, 1 = bfloat16.  bias / mean / inv / beta are f32 and
+// may be null (mean, inv and beta together).  Returns cudaGetLastError().
+extern "C" int sfh_conv3x3(const void* x, const void* wmat, const float* bias,
+                           const float* mean, const float* inv,
+                           const float* beta, void* y, int n, int h, int w,
+                           int cin, int cout, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    sfh::launch<float>(x, wmat, bias, mean, inv, beta, y, n, h, w, cin, cout, st);
+  } else if (dtype == 1) {
+    sfh::launch<__nv_bfloat16>(x, wmat, bias, mean, inv, beta, y, n, h, w, cin,
+                               cout, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

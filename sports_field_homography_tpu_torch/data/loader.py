@@ -1,0 +1,134 @@
+"""Host input pipeline: threaded decode, fixed-size batches, prefetch to
+the device (port of ``data/loader.py``, prediction subset).
+
+Batches keep one size: the tail batch is padded with copies of its last
+sample and carries ``num_valid``.  ``device_prefetch`` replaces the JAX
+package's ``jax.device_put`` prefetch: it copies frames through pinned
+host memory with ``non_blocking`` copies, keeping ``depth`` batches in
+flight so the copy of the next batch overlaps the compute of this one.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+__all__ = ["Loader", "device_prefetch"]
+
+_READY_BATCHES = 2      # decoded batches waiting for the consumer
+_IN_FLIGHT = 2          # batches copied to the device ahead of use
+
+
+def _collate(samples) -> Dict[str, object]:
+    batch: Dict[str, object] = {}
+    for k in samples[0]:
+        vals = [s[k] for s in samples]
+        batch[k] = (np.stack(vals) if isinstance(vals[0], np.ndarray)
+                    else vals)
+    return batch
+
+
+class Loader:
+    """Ordered, padded-batch loader over an indexable dataset.
+
+    Yields dicts of stacked numpy arrays (names as lists) plus ``valid``
+    ((B,) bool) and ``num_valid`` (int).  Samples decode on a thread pool
+    of ``num_workers``; at most ``_READY_BATCHES`` batches wait ready.
+    """
+
+    def __init__(self, dataset, batch_size: int, num_workers: int = 4):
+        self.dataset = dataset
+        self.batch_size = int(batch_size)
+        self.num_workers = max(1, int(num_workers))
+
+    def __len__(self) -> int:
+        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+
+    def _batches_of_indices(self):
+        n, bs = len(self.dataset), self.batch_size
+        for start in range(0, n, bs):
+            idx = np.arange(start, min(start + bs, n))
+            valid = np.ones(bs, bool)
+            pad = bs - len(idx)
+            if pad:
+                idx = np.concatenate([idx, np.full(pad, idx[-1])])
+                valid[bs - pad:] = False
+            yield idx, valid
+
+    def __iter__(self) -> Iterator[Dict[str, object]]:
+        out_q: "queue.Queue" = queue.Queue(maxsize=_READY_BATCHES)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
+                    for idx, valid in self._batches_of_indices():
+                        samples = list(ex.map(self.dataset.__getitem__, idx))
+                        batch = _collate(samples)
+                        batch["valid"] = valid
+                        batch["num_valid"] = int(valid.sum())
+                        if not put(batch):
+                            return
+                put(None)
+            except BaseException as e:  # handed to the consumer, re-raised there
+                if put(e):
+                    put(None)
+
+        t = threading.Thread(target=producer, daemon=True,
+                             name="sfh-loader-producer")
+        t.start()
+        try:
+            while True:
+                item = out_q.get()
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            t.join(timeout=5)
+
+
+def device_prefetch(iterator, device: torch.device):
+    """Copy each batch's ``image`` to ``device`` ahead of use.
+
+    On a CUDA device it goes through pinned memory with a ``non_blocking``
+    copy on the current stream, so ``_IN_FLIGHT`` batches are on their way
+    while the caller computes.
+    """
+    device = torch.device(device)
+    pin = device.type == "cuda"
+
+    def put(batch):
+        t = torch.from_numpy(batch["image"])
+        if pin:
+            t = t.pin_memory()
+        batch["image"] = t.to(device, non_blocking=pin)
+        return batch
+
+    buf = []
+    it = iter(iterator)
+    for batch in it:
+        buf.append(put(batch))
+        if len(buf) == _IN_FLIGHT:
+            break
+    while buf:
+        out = buf.pop(0)
+        nxt = next(it, None)
+        if nxt is not None:
+            buf.append(put(nxt))
+        yield out

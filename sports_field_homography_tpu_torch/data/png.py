@@ -1,0 +1,80 @@
+"""A small PNG reader on the standard library's zlib and numpy.
+
+Reads 8-bit, non-interlaced grayscale (L), gray+alpha, RGB and RGBA PNGs:
+enough for the court templates and for frames, where Pillow is absent.
+Pillow is used instead wherever it is installed.
+
+PNG filters predict each byte from its left, upper and upper-left
+neighbours (Sub, Up, Average, Paeth), so a row cannot be undone in one
+vectorised step.  Every one of those neighbours lies on an earlier
+anti-diagonal (row + column) of the pixel grid, though, so the image is
+unfiltered one anti-diagonal at a time: H + W - 1 numpy steps, each over
+all the pixels of its diagonal, whatever filter each row uses.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+__all__ = ["read_png"]
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}       # PNG colour type -> channels
+
+
+def _unfilter(ftype: np.ndarray, raw: np.ndarray) -> np.ndarray:
+    """ftype (H,) filter bytes; raw (H, W, C) filtered bytes -> (H, W, C)."""
+    h, w, c = raw.shape
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"bad PNG filter type {int(ftype.max())}")
+    # one zero row above and one zero column left: the PNG border rule
+    out = np.zeros((h + 1, w + 1, c), np.int32)
+    raw = raw.astype(np.int32)
+    for d in range(h + w - 1):
+        r = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
+        x = d - r
+        a = out[r + 1, x]          # left
+        b = out[r, x + 1]          # up
+        cc = out[r, x]             # up-left
+        p = a + b - cc
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+        t = ftype[r][:, None]
+        pred = np.where(t == 1, a, np.where(t == 2, b, np.where(
+            t == 3, (a + b) >> 1, np.where(t == 4, paeth, 0))))
+        out[r + 1, x + 1] = (raw[r, x] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode a PNG file to (H, W) uint8 for grayscale, else (H, W, C)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        chunk = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if ctype == b"IHDR":
+            header = struct.unpack(">IIBBBBB", chunk)
+        elif ctype == b"IDAT":
+            idat.append(chunk)
+        elif ctype == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _CHANNELS or interlace != 0:
+        raise ValueError(
+            f"{path}: only 8-bit non-interlaced L/LA/RGB/RGBA PNGs are "
+            f"supported (bit depth {depth}, colour type {color}, "
+            f"interlace {interlace}); install Pillow for others")
+    c = _CHANNELS[color]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows[:h * (w * c + 1)].reshape(h, w * c + 1)
+    img = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, c))
+    return img[..., 0] if c == 1 else img

@@ -1,0 +1,79 @@
+"""Homography warp grids (port of ``geometry/warp.py``).
+
+kornia's ``HomographyWarper`` as the reference uses it: a normalized
+meshgrid over the output with endpoints included, mapped through theta,
+then sampled with ``align_corners=False``.  The sampler itself is the
+nearest-warp kernel in ``ops/warp.py``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .homography import transform_points
+
+__all__ = ["normalized_grid", "warp_grid", "subsampled_warp_grid",
+           "_unnormalize"]
+
+
+def _f32(v: float) -> float:
+    """A Python float holding exactly the float32 rounding of v (what a
+    float32 array times a Python float computes with)."""
+    return float(np.float32(v))
+
+
+def _axis(n: int, device) -> torch.Tensor:
+    """[-1, 1] coordinates of n grid points, endpoints included:
+    ``i * f32(2 / (n - 1)) - 1`` as the reference builds them."""
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    return i * _f32(2.0 / (n - 1)) - 1.0
+
+
+def normalized_grid(height: int, width: int, device=None) -> torch.Tensor:
+    """(H, W, 2) grid of (x, y) in [-1, 1] (kornia ``create_meshgrid``)."""
+    xs = _axis(width, device)
+    ys = _axis(height, device)
+    return torch.stack([xs[None, :].expand(height, width),
+                        ys[:, None].expand(height, width)], dim=-1)
+
+
+def warp_grid(theta: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(B, H, W, 2) normalized source coordinates of the output grid.
+
+    theta: (B, 3, 3) or (B, 1, 3, 3) f32 dst -> src homographies.
+    """
+    if theta.dim() == 4:
+        theta = theta[:, 0]
+    grid = normalized_grid(height, width, theta.device).reshape(1, -1, 2)
+    pts = transform_points(theta, grid)
+    return pts.reshape(theta.shape[0], height, width, 2)
+
+
+def _subsample_index(n_full: int, n_sub: int, device) -> torch.Tensor:
+    """torch nearest-resize source indices ``floor(i * full / sub)``."""
+    i = torch.arange(n_sub, dtype=torch.float32, device=device)
+    return torch.clamp(torch.floor(i * _f32(n_full / n_sub)),
+                       max=float(n_full - 1))
+
+
+def subsampled_warp_grid(theta: torch.Tensor, out_hw, sample_hw) -> torch.Tensor:
+    """The out_hw warp grid evaluated only at the nearest-resize sample
+    points of sample_hw (port of ``ops/interval_warp._warp_grid_subsampled``):
+    warping with it equals warping at out_hw, then nearest-resizing."""
+    if theta.dim() == 4:
+        theta = theta[:, 0]
+    ho, wo = out_hw
+    hs, ws = sample_hw
+    dev = theta.device
+    xn = _subsample_index(wo, ws, dev) * _f32(2.0 / (wo - 1)) - 1.0
+    yn = _subsample_index(ho, hs, dev) * _f32(2.0 / (ho - 1)) - 1.0
+    grid = torch.stack([xn[None, :].expand(hs, ws),
+                        yn[:, None].expand(hs, ws)], dim=-1).reshape(1, -1, 2)
+    pts = transform_points(theta, grid)
+    return pts.reshape(theta.shape[0], hs, ws, 2)
+
+
+def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
+    """[-1, 1] -> pixel coordinates, as ``grid_sample`` with
+    ``align_corners=False``."""
+    return ((coord + 1.0) * size - 1.0) * 0.5

@@ -1,0 +1,179 @@
+"""Reconstructor: UNet segmentation + ResNet STN + court-template warp,
+inference (port of ``models/reconstructor.py``).
+
+Conventions as in the JAX package: images NHWC in [0, 1]; theta
+(B, 1, 3, 3) maps frame -> court in normalized [-1, 1] coordinates; the
+court template is a (Ht, Wt) uint8 label map.  Sizes are (W, H).
+
+PyTorch runs eagerly, so nothing is pruned after the fact: ``predict``
+computes only what it is asked for.  In particular the consistency labels
+come from the warp evaluated at the logits grid (``sample_hw``): the
+full-resolution warp belongs to the ``warp_mask`` output, which is not
+ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.warp import warp_nearest
+from .layers import nchw, nhwc
+from .losses import cross_entropy_map
+from .resnet import ResNetSTN, resnet_models
+from .unet import unet_forward, unet_layers
+
+__all__ = ["Input", "ReconstructorConfig", "Reconstructor"]
+
+
+class Input(enum.Enum):
+    """STN input selector."""
+
+    IMG = 1
+    MASK = 2
+    IMG_AND_MASK = 3
+    IMG_AND_MASK_AND_UV = 4
+
+    @classmethod
+    def parse(cls, value):
+        if value is None or isinstance(value, cls):
+            return value
+        mapping = {"img": cls.IMG, "mask": cls.MASK,
+                   "img+mask": cls.IMG_AND_MASK,
+                   "img+mask+uv": cls.IMG_AND_MASK_AND_UV}
+        if value not in mapping:
+            raise NotImplementedError(value)
+        return mapping[value]
+
+
+@dataclasses.dataclass(frozen=True)
+class ReconstructorConfig:
+    """Static model configuration; sizes are (W, H)."""
+
+    target_size: Tuple[int, int] = (640, 360)
+    mask_classes: int = 4
+    use_unet: bool = True
+    unet_bilinear: bool = False
+    unet_size: Tuple[int, int] = (640, 360)
+    unet_uv: bool = False
+    use_resnet: bool = True
+    resnet_name: str = "resnet34"
+    resnet_input: str = "img+mask"
+    use_warper: bool = True
+    warp_size: Tuple[int, int] = (640, 360)
+
+    def __post_init__(self):
+        if not (self.use_unet or self.use_resnet):
+            raise ValueError("need the UNet, the ResNet or both")
+        if self.unet_bilinear:
+            raise NotImplementedError(
+                "the bilinear UNet is not ported yet (ROADMAP.md, queue 1 "
+                "step 3)")
+        if self.use_resnet and self.resnet_name not in resnet_models:
+            raise NotImplementedError(
+                f"{self.resnet_name}: only {sorted(resnet_models)} are "
+                "ported yet (ROADMAP.md, queue 1 step 3)")
+        mode = Input.parse(self.resnet_input)
+        if self.use_resnet:
+            if mode is None:
+                raise ValueError("use_resnet needs resnet_input")
+            if mode != Input.IMG and not self.use_unet:
+                raise ValueError(f"resnet_input {self.resnet_input} needs the UNet")
+            if mode == Input.IMG_AND_MASK_AND_UV and not self.unet_uv:
+                raise ValueError("resnet_input img+mask+uv needs unet_uv")
+
+    @property
+    def stn_in_channels(self) -> int:
+        mode = Input.parse(self.resnet_input)
+        return {Input.IMG: 3, Input.MASK: self.mask_classes,
+                Input.IMG_AND_MASK: self.mask_classes + 3,
+                Input.IMG_AND_MASK_AND_UV: self.mask_classes + 5}[mode]
+
+
+class Reconstructor(nn.Module):
+    """The UNet's layers sit directly on this module and the ResNet under
+    ``resnet_reg``, which gives the reference's ``state_dict`` keys."""
+
+    def __init__(self, config: ReconstructorConfig,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        if config.use_unet:
+            for name, layer in unet_layers(config.mask_classes,
+                                           config.unet_uv).items():
+                self.add_module(name, layer)
+        if config.use_resnet:
+            block, layers = resnet_models[config.resnet_name]
+            self.resnet_reg = ResNetSTN(block, layers, config.stn_in_channels)
+
+    def forward_unet(self, x: torch.Tensor):
+        """UNet with input/output resolution fitting.  x: NHWC f32."""
+        cfg = self.config
+        uw, uh = cfg.unet_size
+        if x.shape[1] != uh or x.shape[2] != uw:
+            x = nhwc(F.interpolate(nchw(x), size=(uh, uw), mode="bilinear",
+                                   align_corners=False))
+        logits, x_top, uv = unet_forward(self, x.to(self.dtype).contiguous())
+        tw, th = cfg.target_size
+
+        def fit(t):
+            if t is None or (t.shape[1] == th and t.shape[2] == tw):
+                return t
+            return nhwc(F.interpolate(nchw(t), size=(th, tw), mode="nearest"))
+
+        return fit(logits), x_top, fit(uv)
+
+    def _stn_input(self, x, logits, uv):
+        mode = Input.parse(self.config.resnet_input)
+        parts = {Input.IMG: [x], Input.MASK: [logits],
+                 Input.IMG_AND_MASK: [logits, x],
+                 Input.IMG_AND_MASK_AND_UV: [logits, x, uv]}[mode]
+        return torch.cat([p.to(self.dtype) for p in parts], dim=-1)
+
+    def warp(self, theta: torch.Tensor, court_labels: torch.Tensor,
+             value_step: float, sample_hw=None) -> torch.Tensor:
+        """Nearest warp of the court template (K1) at ``warp_size``, or at
+        its ``sample_hw`` subgrid; returns ``label * value_step`` (f32)."""
+        w, h = self.config.warp_size
+        return warp_nearest(court_labels, theta, (h, w), sample_hw=sample_hw,
+                            value_step=value_step)
+
+    def predict(self, x: torch.Tensor, court_labels: Optional[torch.Tensor] = None,
+                value_step: float = 1.0, consistency: bool = True) -> dict:
+        """Inference forward.
+
+        Args:
+          x: (B, H, W, 3) float32 frames in [0, 1].
+          court_labels, value_step: the court template and its value step
+            (``ops/warp.template_value_step``); needed for the warp.
+          consistency: return ``consist_score``, the per-frame mean
+            per-pixel cross entropy of the logits against the warped labels.
+        Returns:
+          dict with ``logits`` (NHWC), ``theta`` (B, 1, 3, 3) f32 and, when
+          requested, ``consist_score`` (B,).
+        """
+        cfg = self.config
+        ret = {}
+        logits = uv = None
+        if cfg.use_unet:
+            logits, _, uv = self.forward_unet(x)
+            ret["logits"] = logits
+        if not cfg.use_resnet:
+            return ret
+        theta = self.resnet_reg(self._stn_input(x, logits, uv))
+        ret["theta"] = theta
+        if not cfg.use_warper:
+            return ret
+        if consistency and cfg.use_unet:
+            w, h = cfg.warp_size
+            grid = tuple(logits.shape[1:3])
+            sample = None if grid == (h, w) else grid
+            wm = self.warp(theta, court_labels, value_step, sample_hw=sample)
+            labels = (wm * cfg.mask_classes).to(torch.int32)
+            ret["consist_score"] = cross_entropy_map(logits, labels).mean(dim=(1, 2))
+        return ret

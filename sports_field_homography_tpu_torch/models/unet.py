@@ -1,0 +1,132 @@
+"""UNet court segmentation, deconv variant, inference (port of
+``models/unet.py``).
+
+Activations are NHWC.  Every 3x3 conv except the 3-channel stem runs K2
+(``ops/double_conv.py``), every up-conv K3 (``ops/deconv.py``).  Parameter
+names follow the reference (``inc.double_conv.0.weight``,
+``down1.maxpool_conv.1.double_conv...``, ``up1.up.weight``,
+``outc.conv.weight``).  The reference inlines these layers into its
+Reconstructor, so ``unet_layers`` builds them for it to hold and
+``unet_forward`` runs them on the module that holds them.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.deconv import deconv2x2
+from ..ops.double_conv import double_conv_eval
+from .layers import BN_EPS, max_pool
+
+__all__ = ["DoubleConv", "Down", "Up", "OutConv", "unet_layers", "unet_forward"]
+
+
+def _hwio(w: torch.Tensor) -> torch.Tensor:
+    return w.permute(2, 3, 1, 0)
+
+
+class DoubleConv(nn.Module):
+    """(conv3x3 pad1 -> BN -> ReLU) x 2 (reference ``unet/unet_parts.py``)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.double_conv = nn.Sequential(
+            nn.Conv2d(in_channels, out_channels, 3, padding=1),
+            nn.BatchNorm2d(out_channels),
+            nn.ReLU(inplace=True),
+            nn.Conv2d(out_channels, out_channels, 3, padding=1),
+            nn.BatchNorm2d(out_channels),
+            nn.ReLU(inplace=True),
+        )
+
+    def conv_bn_pairs(self):
+        s = self.double_conv
+        return [(s[0], s[1]), (s[3], s[4])]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c1, bn1, _, c2, bn2, _ = self.double_conv
+        return double_conv_eval(
+            x, _hwio(c1.weight), c1.bias, bn1.weight, bn1.bias,
+            bn1.running_mean, bn1.running_var,
+            _hwio(c2.weight), c2.bias, bn2.weight, bn2.bias,
+            bn2.running_mean, bn2.running_var, BN_EPS)
+
+
+class Down(nn.Module):
+    """2x2 max-pool, then DoubleConv."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.maxpool_conv = nn.Sequential(nn.MaxPool2d(2),
+                                          DoubleConv(in_channels, out_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.maxpool_conv[1](max_pool(x, 2, 2))
+
+
+class Up(nn.Module):
+    """k2s2 up-conv (K3), pad to the skip's size, concat, DoubleConv."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.up = nn.ConvTranspose2d(in_channels, in_channels // 2, 2, stride=2)
+        self.conv = DoubleConv(in_channels, out_channels)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        x1 = deconv2x2(x1, self.up.weight.permute(0, 2, 3, 1), self.up.bias)
+        # align to the skip: F.pad([dx//2, dx-dx//2, dy//2, dy-dy//2])
+        dy = x2.shape[1] - x1.shape[1]
+        dx = x2.shape[2] - x1.shape[2]
+        if dy or dx:
+            x1 = F.pad(x1, (0, 0, dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
+        # the two-input K2 (concat-free) is later work
+        return self.conv(torch.cat([x2, x1], dim=-1))
+
+
+class OutConv(nn.Module):
+    """1x1 projection head."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        return F.linear(x, self.conv.weight[:, :, 0, 0].to(dt),
+                        self.conv.bias.to(dt))
+
+
+def unet_layers(mask_classes: int = 4, uv: bool = False) -> Dict[str, nn.Module]:
+    """The UNet's layers by reference name: channels 64..1024, 4 skips."""
+    layers = {
+        "inc": DoubleConv(3, 64),
+        "down1": Down(64, 128), "down2": Down(128, 256),
+        "down3": Down(256, 512), "down4": Down(512, 1024),
+        "up1": Up(1024, 512), "up2": Up(512, 256),
+        "up3": Up(256, 128), "up4": Up(128, 64),
+        "outc": OutConv(64, mask_classes),
+    }
+    if uv:
+        layers["outuv"] = OutConv(64, 2)
+    return layers
+
+
+def unet_forward(m: nn.Module, x: torch.Tensor):
+    """Run the UNet layers held by ``m`` on NHWC ``x`` (in the compute
+    dtype).  Returns (logits, bottleneck, uv or None), all NHWC."""
+    x1 = m.inc(x)
+    x2 = m.down1(x1)
+    x3 = m.down2(x2)
+    x4 = m.down3(x3)
+    x_top = m.down4(x4)
+    y = m.up1(x_top, x4)
+    y = m.up2(y, x3)
+    y = m.up3(y, x2)
+    y = m.up4(y, x1)
+    logits = m.outc(y)
+    uv = m.outuv(y) if hasattr(m, "outuv") else None
+    return logits, x_top, uv
+

@@ -1,0 +1,117 @@
+"""Argparse + YAML-overlay configuration (port of ``utils/config.py``,
+the prediction arguments the predict slice uses).
+
+Same flag names and defaults as the JAX package, and the same overlay:
+a ``conf.yaml`` beside the checkpoint replaces parsed values key by key
+(``replace_args``), except for the keys a caller lists to ignore.  The TPU
+kernel switches (``--warp_kernel``, ``--conv_kernel``, ``--fused_bn``) are
+not carried over: the port always runs its CUDA kernels on a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+__all__ = ["parse_config", "get_prediction_args", "replace_args",
+           "resolve_asset"]
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def resolve_asset(path: str) -> str:
+    """Resolve ``./assets/...`` defaults against the checkout root when they
+    do not exist relative to the working directory."""
+    if path and not os.path.exists(path):
+        candidate = os.path.join(_REPO_ROOT, path.lstrip("./"))
+        if os.path.exists(candidate):
+            return candidate
+    return path
+
+
+def parse_config(path_to_yaml: str):
+    """Parse a YAML config file; ``None`` (with a message) if unreadable."""
+    import yaml
+
+    try:
+        with open(path_to_yaml, "r") as file:
+            return yaml.safe_load(file)
+    except (OSError, yaml.YAMLError):
+        print("Error reading the config file:", path_to_yaml)
+        return None
+
+
+def _base_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Reconstructor (PyTorch)")
+    parser.add_argument("--load", dest="load", type=str, default=None,
+                        help="Load model from a reference-keyed .pth state_dict")
+    parser.add_argument("--conf_path", "-c", dest="conf_path", type=str,
+                        default=None, help="Load config from a .yaml file")
+    parser.add_argument("--batchsize", "-bs", dest="batchsize", type=int,
+                        default=8, help="Batch size")
+    parser.add_argument("--img_dir", dest="img_dir", type=str, default=None,
+                        help="Directory of frames")
+    parser.add_argument("--court_img", dest="court_img", type=str,
+                        default="./assets/pitch_mask_nc4_hd_onehot.png",
+                        help="Court template image warped by the homography")
+    parser.add_argument("--court_poi", dest="court_poi", type=str,
+                        default="./assets/template_pitch_points.json",
+                        help="Court points of interest")
+    # resolutions (W, H); set through conf.yaml
+    parser.add_argument("--target_size", dest="target_size", default=(640, 360))
+    parser.add_argument("--unet_size", dest="unet_size", default=(640, 360))
+    parser.add_argument("--warp_size", dest="warp_size", default=(640, 360))
+    parser.add_argument("--court_size", dest="court_size", default=(640, 360))
+    parser.add_argument("--use_unet", action="store_true", default=True)
+    parser.add_argument("--unet_bilinear", action="store_true", default=False)
+    parser.add_argument("--mask_classes", dest="mask_classes", type=int,
+                        default=4)
+    parser.add_argument("--unet_uv", action="store_true", default=False)
+    parser.add_argument("--use_resnet", action="store_true", default=True)
+    parser.add_argument("--resnet_name", type=str, default="resnet34")
+    parser.add_argument("--resnet_input", type=str, default="img+mask")
+    parser.add_argument("--use_warper", action="store_true", default=True)
+    parser.add_argument("--compute_dtype", type=str, default="bfloat16",
+                        help="bfloat16 (fast) or float32 (parity; TF32 off)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; 'cpu' runs the kernels' plain "
+                             "PyTorch versions")
+    # accepted so the JAX package's command lines parse; not ported yet
+    parser.add_argument("--num_devices", type=int, default=None)
+    parser.add_argument("--num_hosts", type=int, default=None)
+    parser.add_argument("--host_id", type=int, default=None)
+    parser.add_argument("--coordinator", type=str, default=None)
+    return parser
+
+
+def get_prediction_args(argv=None):
+    """Prediction arguments (the JAX package's ``get_prediction_args``)."""
+    parser = _base_parser()
+    parser.add_argument("--video_path", type=str, default=None)
+    parser.add_argument("--video_workers", type=int, default=1)
+    parser.add_argument("--dst_dir", type=str, default=None,
+                        help="Directory where the results will be saved")
+    parser.add_argument("--req_outputs", type=str,
+                        default="segm_mask,warp_mask,theta,poi,consistency,debug",
+                        help="Outputs to compute and save (this port: "
+                             "theta, consistency)")
+    parser.add_argument("--out_size", default=(1280, 720), nargs="+", type=int,
+                        help="Output images size")
+    parser.add_argument("--mask_type", type=str, default="gray")
+    parser.add_argument("--mask_save_format", type=str, default="pickle")
+    parser.add_argument("--fold_bn", type=int, default=1,
+                        help="Fold BatchNorm into conv weights at load "
+                             "(inference-only; 0 disables)")
+    parser.add_argument("--resume", action="store_true", default=False)
+    return parser.parse_args(argv)
+
+
+def replace_args(args, conf, ignore_keys=None):
+    """Overlay YAML values onto parsed args, skipping ``ignore_keys``."""
+    if args is None or conf is None:
+        raise ValueError("replace_args needs parsed args and a config")
+    ignore_keys = ignore_keys or []
+    for k in vars(args).keys():
+        if k not in ignore_keys and k in conf:
+            setattr(args, k, conf[k])
+    return args
