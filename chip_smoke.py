@@ -8,36 +8,62 @@ Phases, each of which raises (exit code != 0) when it fails:
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
-2. build: compiles the CUDA kernels from ``csrc/`` (``build/torch_kernels/``).
+2. build: compiles the CUDA kernels from ``csrc/`` (``build/torch_kernels/``),
+   one nvcc per source, all at once.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the predict path's shapes with batch 8, timed with CUDA events (median
-   of several runs):
+   the main paths' shapes with batch 8, timed with CUDA events (median of
+   several runs):
      K1 warp      1280x720 template, full grid and sample_hw=(360, 640):
                   labels equal;
      K2 conv3x3   64->64 at 360x640 and 128->128 at 180x320, with and
                   without the prologue;
-     K3 deconv    the four UNet up-conv shapes;
-   K2/K3 in f32 with TF32 off (rtol = atol = 1e-4), and in bf16 against
-   the plain version in f32 on the same bf16 inputs (rtol = atol = 2e-2).
-4. slice: 16 seeded 640x360 PNG frames, a seeded resnet34 img+mask model
+     K3 deconv    the four UNet up-convs;
+     K2+stats     64->64 at 360x640 with the prologue, 1024->512 at 45x80;
+     K5 wgrad     64->64 at 360x640 with the prologue, 128->128 at
+                  180x320, 1024->512 at 45x80;
+     K7-bwd       360x640x64;
+     K3-bwd       up4 (180x320x128 -> 64) and up1 (22x40x1024 -> 512).
+   In f32 with TF32 off (elementwise outputs rtol = atol = 1e-4;
+   reductions, whose kernels sum in another order, rel-L2 <= 1e-5 against
+   the plain version in float64 on the same inputs), and in bf16 against
+   the plain version on the same bf16 inputs, which like the kernels
+   accumulates in f32 (rtol = atol = 2e-2; reductions rel-L2 <= 1e-3).
+   Every reduction kernel is run twice and must repeat bitwise.
+4. predict: 16 seeded 640x360 PNG frames, a seeded resnet34 img+mask model
    saved as .pth, the predict CLI in-process (bf16, theta + consistency,
-   batch 8, NCAA court).  Checks 16 finite records and that every kernel
-   of the path launched; then 2 frames in f32 on CUDA (TF32 off) against
-   the CPU (plain versions): theta max-abs <= 2e-4, score <= 1e-3.  Prints
-   the slice's frames/s at batch 8.
+   batch 8, NCAA court).  Checks 16 finite records and that K1, K2 and K3
+   launched; then 2 frames in f32 on CUDA (TF32 off) against the CPU
+   (plain versions): theta max-abs <= 2e-4, score <= 1e-3.  Prints the
+   predict frames/s at batch 8.
+5. train: a seeded synthetic 640x360 set (24 train, 8 validation frames),
+   a JSON conf (the flagship, bf16, the example conf's losses and RMSprop,
+   consist_start_iter 0), the train CLI in-process: 3 steps at batch 8 and
+   one validation pass.  Checks finite losses, that K2 with stats, K2
+   (dgrad), K3, K3-bwd, K5 and K7-bwd launched, and that the written .pth
+   loads into the predict CLI.  Then one f32 train step (TF32 off) at
+   64x36, batch 3, on CUDA and on the CPU: per-loss values rtol 2e-3 /
+   atol 1e-4 (consistency 1e-2 / 1e-3), every gradient rel-L2 < 2e-2,
+   with both runs' distance to a float64 run printed.  And every UNet
+   module of such steps at 64x36 batch 3, 128x72 batch 3 and 256x144
+   batch 2, replayed from the inputs and cotangent it had in the step, on
+   CUDA: output and every gradient within rel-L2 max(1e-4, 4x the CPU
+   f32's) of float64 where CUDA and the CPU took the same ReLU masks, and
+   within 1e-2 of the CPU where a mask bit differs (the whole step's
+   gradients are too sensitive to rounding at these sizes to hold the
+   kernels to; ``scripts/torch_train_parity.py`` measures that).
+   Prints ms/step and img/s at batch 8.
 
 The last two lines are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
+import re
 import shutil
 import statistics
-import struct
 import subprocess
 import sys
 import time
-import zlib
 
 import numpy as np
 
@@ -50,24 +76,6 @@ COURT_POI = os.path.join(REPO, "assets", "template_ncaa_v4_points.json")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Minimal 8-bit RGB PNG writer (filter 0), so the smoke run needs no
-    image library."""
-    h, w, _ = rgb.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], 1)
-
-    def chunk(kind, data):
-        body = kind + data
-        return struct.pack(">I", len(data)) + body + struct.pack(
-            ">I", zlib.crc32(body) & 0xFFFFFFFF)
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)))
-        f.write(chunk(b"IEND", b""))
 
 
 def cuda_ms(fn, warmup: int = 2, runs: int = 7) -> float:
@@ -228,12 +236,13 @@ def phase_kernels(dev, card):
     return results
 
 
-def phase_slice(dev, card, work):
+def phase_predict(dev, card, work):
     import torch
 
     from sports_field_homography_tpu_torch.cli import predict as predict_cli
     from sports_field_homography_tpu_torch.cli.engine import build_model
     from sports_field_homography_tpu_torch.data.dataset import BasicDataset
+    from sports_field_homography_tpu_torch.data.png import write_png
     from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
     from sports_field_homography_tpu_torch.models.layers import init_weights
     from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
@@ -328,6 +337,557 @@ def phase_slice(dev, card, work):
     return launches
 
 
+def _rel_l2(got, ref) -> float:
+    got, ref = got.double(), ref.double()
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def _reduction(name, got, ref, bound):
+    """rel-L2 of a reduction's result against its reference, <= bound."""
+    rel = _rel_l2(got, ref)
+    if not rel <= bound:
+        raise AssertionError(f"{name}: rel-L2 {rel:.3e} against the plain version "
+                             f"exceeds {bound:.0e}")
+    return rel
+
+
+def _repeats_bitwise(name, fn):
+    """Run a reduction kernel twice on the same inputs: equal bit for bit."""
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: two runs on the same input differ")
+    return "bitwise repeat: equal"
+
+
+def phase_train_kernels(dev, card):
+    """K2+stats, K5, K7-bwd and K3-bwd against their plain versions at the
+    train path's shapes (batch 8)."""
+    import torch
+
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import (
+        bn_relu_bwd, bn_relu_bwd_plain)
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+    from sports_field_homography_tpu_torch.ops.deconv import (
+        deconv2x2_backward, deconv2x2_backward_plain)
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3, wgrad3x3_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(1)
+    results = {}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def prologue(c):
+        return (rnd(c, scale=0.1), torch.rand((c,), generator=gen, device=dev) + 0.5,
+                rnd(c, scale=0.1))
+
+    def as64(t):
+        return None if t is None else (tuple(v.double() for v in t)
+                                       if isinstance(t, tuple) else t.double())
+
+    # --- K2 with the stats epilogue ----------------------------------------
+    err, timing = 0.0, None
+    for (h, w, cin, cout, pro_on) in ((360, 640, 64, 64, True), (45, 80, 1024, 512, False)):
+        x = rnd(BATCH, h, w, cin)
+        wt = rnd(3, 3, cin, cout, scale=1.0 / (3.0 * cin ** 0.5))
+        b = rnd(cout, scale=0.1)
+        pro = prologue(cin) if pro_on else None
+        tag = f"{cin}->{cout} at {h}x{w}{' +prologue' if pro_on else ''}"
+        y, s = conv3x3(x, wt, b, pro, stats=True)
+        y_ref, _ = conv3x3_plain(x, wt, b, pro, stats=True)
+        _, s64 = conv3x3_plain(x.double(), wt.double(), b.double(), as64(pro), stats=True)
+        e = _compare(f"K2+stats f32 {tag}", y, y_ref, 1e-4, 1e-4)
+        r = _reduction(f"K2+stats f32 sums {tag}", s, s64, 1e-5)
+        xb, wb = x.bfloat16(), wt.bfloat16()
+        yb, sb = conv3x3(xb, wb, b, pro, stats=True)
+        yb_ref, sb_ref = conv3x3_plain(xb, wb, b, pro, stats=True)
+        eb = _compare(f"K2+stats bf16 {tag}", yb, yb_ref, 2e-2, 2e-2)
+        rb = _reduction(f"K2+stats bf16 sums {tag}", sb, sb_ref, 1e-3)
+        rep = _repeats_bitwise(f"K2+stats {tag}", lambda: conv3x3(xb, wb, b, pro, stats=True))
+        ms = cuda_ms(lambda: conv3x3(xb, wb, b, pro, stats=True))
+        pms = cuda_ms(lambda: conv3x3_plain(xb, wb, b, pro, stats=True))
+        log(f"K2+stats conv3x3 {tag}: f32 max abs err {e:.2e}, sums rel-L2 {r:.2e} "
+            f"(vs float64); bf16 max abs err {eb:.2e}, sums rel-L2 {rb:.2e}; {rep}; "
+            f"bf16 kernel {ms:.3f} ms, plain (f32 cuDNN conv + sums) {pms:.3f} ms [{card}]")
+        err = max(err, e, eb)
+        timing = timing or (ms, pms)
+        del x, y, y_ref, xb, yb, yb_ref
+    results["conv3x3_stats"] = (err, *timing)
+
+    # --- K5 wgrad ----------------------------------------------------------
+    err, timing = 0.0, None
+    for (h, w, cin, cout, pro_on) in ((360, 640, 64, 64, True), (180, 320, 128, 128, False),
+                                      (45, 80, 1024, 512, False)):
+        x = rnd(BATCH, h, w, cin)
+        dy = rnd(BATCH, h, w, cout)
+        pro = prologue(cin) if pro_on else None
+        tag = f"{cin}->{cout} at {h}x{w}{' +prologue' if pro_on else ''}"
+        dw, db = wgrad3x3(x, dy, pro)
+        dw64, db64 = wgrad3x3_plain(x.double(), dy.double(), as64(pro))
+        r = max(_reduction(f"K5 f32 dW {tag}", dw, dw64, 1e-5),
+                _reduction(f"K5 f32 db {tag}", db, db64, 1e-5))
+        r_plain = _rel_l2(wgrad3x3_plain(x, dy, pro)[0], dw64)
+        xb, dyb = x.bfloat16(), dy.bfloat16()
+        dwb, dbb = wgrad3x3(xb, dyb, pro)
+        dwb_ref, dbb_ref = wgrad3x3_plain(xb, dyb, pro)
+        rb = max(_reduction(f"K5 bf16 dW {tag}", dwb, dwb_ref, 1e-3),
+                 _reduction(f"K5 bf16 db {tag}", dbb, dbb_ref, 1e-3))
+        e = max(float((dw - dw64).abs().max()), float((dwb - dwb_ref).abs().max()))
+        rep = _repeats_bitwise(f"K5 {tag}", lambda: wgrad3x3(xb, dyb, pro))
+        ms = cuda_ms(lambda: wgrad3x3(xb, dyb, pro))
+        pms = cuda_ms(lambda: wgrad3x3_plain(xb, dyb, pro))
+        log(f"K5 wgrad3x3 {tag}: f32 rel-L2 {r:.2e} vs float64 (plain f32 cuDNN "
+            f"{r_plain:.2e}); bf16 rel-L2 {rb:.2e}; {rep}; bf16 kernel {ms:.3f} ms, "
+            f"plain (cuDNN wgrad) {pms:.3f} ms [{card}]")
+        err = max(err, e)
+        timing = timing or (ms, pms)
+        del x, dy, xb, dyb
+    results["wgrad3x3"] = (err, *timing)
+
+    # --- K7-bwd ------------------------------------------------------------
+    c = 64
+    y = rnd(BATCH, 360, 640, c, scale=2.0) + 0.3
+    g = rnd(BATCH, 360, 640, c)
+    mean = y.mean(dim=(0, 1, 2))
+    rstd = torch.rsqrt((y * y).mean(dim=(0, 1, 2)) - mean * mean + 1e-5)
+    gamma = torch.rand((c,), generator=gen, device=dev) + 0.5
+    beta = rnd(c, scale=0.3)
+    vecs = (mean, rstd, gamma, beta)
+    dx, dgam, dbet = bn_relu_bwd(y, g, *vecs)
+    dx_ref, _, _ = bn_relu_bwd_plain(y, g, *vecs)
+    _, dgam64, dbet64 = bn_relu_bwd_plain(y.double(), g.double(), *map(lambda v: v.double(), vecs))
+    e = _compare("K7-bwd f32 dx", dx, dx_ref, 1e-4, 1e-4)
+    r = max(_reduction("K7-bwd f32 dgamma", dgam, dgam64, 1e-5),
+            _reduction("K7-bwd f32 dbeta", dbet, dbet64, 1e-5))
+    yb, gb = y.bfloat16(), g.bfloat16()
+    dxb, dgamb, dbetb = bn_relu_bwd(yb, gb, *vecs)
+    dxb_ref, dgamb_ref, dbetb_ref = bn_relu_bwd_plain(yb, gb, *vecs)
+    eb = _compare("K7-bwd bf16 dx", dxb, dxb_ref, 2e-2, 2e-2)
+    rb = max(_reduction("K7-bwd bf16 dgamma", dgamb, dgamb_ref, 1e-3),
+             _reduction("K7-bwd bf16 dbeta", dbetb, dbetb_ref, 1e-3))
+    rep = _repeats_bitwise("K7-bwd", lambda: bn_relu_bwd(yb, gb, *vecs))
+    ms = cuda_ms(lambda: bn_relu_bwd(yb, gb, *vecs))
+    pms = cuda_ms(lambda: bn_relu_bwd_plain(yb, gb, *vecs))
+    log(f"K7-bwd bn_relu_bwd 360x640x{c}: f32 dx max abs err {e:.2e}, sums rel-L2 "
+        f"{r:.2e} (vs float64); bf16 dx max abs err {eb:.2e}, sums rel-L2 {rb:.2e}; "
+        f"{rep}; bf16 kernel {ms:.3f} ms, plain (torch elementwise + sums) {pms:.3f} ms "
+        f"[{card}]")
+    results["bn_relu_bwd"] = (max(e, eb), ms, pms)
+    del y, g, dx, dx_ref, yb, gb, dxb, dxb_ref
+
+    # --- K3-bwd ------------------------------------------------------------
+    err, timing = 0.0, None
+    for (h, w, cin) in ((180, 320, 128), (22, 40, 1024)):
+        cout = cin // 2
+        x = rnd(BATCH, h, w, cin)
+        dy = rnd(BATCH, 2 * h, 2 * w, cout)
+        wt = rnd(cin, 2, 2, cout, scale=cin ** -0.5)
+        tag = f"{cin}->{cout} {h}x{w}->{2 * h}x{2 * w}"
+        dx, dw, db = deconv2x2_backward(x, dy, wt)
+        dx_ref, _, _ = deconv2x2_backward_plain(x, dy, wt)
+        _, dw64, db64 = deconv2x2_backward_plain(x.double(), dy.double(), wt.double())
+        e = _compare(f"K3-bwd f32 dx {tag}", dx, dx_ref, 1e-4, 1e-4)
+        r = max(_reduction(f"K3-bwd f32 dW {tag}", dw, dw64, 1e-5),
+                _reduction(f"K3-bwd f32 db {tag}", db, db64, 1e-5))
+        xb, dyb, wb = x.bfloat16(), dy.bfloat16(), wt.bfloat16()
+        dxb, dwb, dbb = deconv2x2_backward(xb, dyb, wb)
+        dxb_ref, dwb_ref, dbb_ref = deconv2x2_backward_plain(xb, dyb, wb)
+        eb = _compare(f"K3-bwd bf16 dx {tag}", dxb, dxb_ref, 2e-2, 2e-2)
+        rb = max(_reduction(f"K3-bwd bf16 dW {tag}", dwb, dwb_ref, 1e-3),
+                 _reduction(f"K3-bwd bf16 db {tag}", dbb, dbb_ref, 1e-3))
+        rep = _repeats_bitwise(f"K3-bwd {tag}", lambda: deconv2x2_backward(xb, dyb, wb))
+        ms = cuda_ms(lambda: deconv2x2_backward(xb, dyb, wb))
+        pms = cuda_ms(lambda: deconv2x2_backward_plain(xb, dyb, wb))
+        log(f"K3-bwd deconv2x2_backward {tag}: f32 dx max abs err {e:.2e}, dW/db rel-L2 "
+            f"{r:.2e} (vs float64); bf16 dx max abs err {eb:.2e}, dW/db rel-L2 {rb:.2e}; "
+            f"{rep}; bf16 kernel {ms:.3f} ms, plain (cuDNN dgrad + f32 einsum) "
+            f"{pms:.3f} ms [{card}]")
+        err = max(err, e, eb)
+        timing = timing or (ms, pms)
+        del x, dy, dx, dx_ref, xb, dyb, dxb, dxb_ref
+    results["deconv2x2_backward"] = (err, *timing)
+    return results
+
+
+def _train_conf(work, data, **extra):
+    conf = dict(img_dir=f"{data}/frames", mask_dir=f"{data}/masks",
+                anno_dir=f"{data}/anno", anno_keys=["poi", "reproj_mse"],
+                val_names=["val_game"], court_img=COURT_IMG, court_poi=COURT_POI,
+                court_size=[640, 360], cp_dir=os.path.join(work, "train", "flagship") + "/",
+                opt="RMSprop", lr=0.0001, weight_decay=0.000001, epochs=1,
+                batchsize=BATCH, target_size=[640, 360], unet_size=[640, 360],
+                warp_size=[640, 360], mask_classes=4, resnet_name="resnet34",
+                resnet_input="img+mask", seg_loss="focal", rec_loss="MSE",
+                reproj_loss="RRMSE", consist_loss="focal", consist_start_iter=0,
+                seg_lambda=1, rec_lambda=1, reproj_lambda=8, consist_lambda=1,
+                val_step_n=3, compute_dtype="bfloat16", device="cuda")
+    conf.update(extra)
+    path = os.path.join(work, "train_conf.json")
+    with open(path, "w") as f:
+        json.dump(conf, f, indent=1)
+    return path
+
+
+_BIAS_BEFORE_BN = re.compile(r"double_conv\.[03]\.bias$")
+
+
+def grad_gaps(got, ref):
+    """rel-L2 of each gradient in ``got`` against ``ref`` over the leaves
+    the slice bounds cover (norm above 1e-6; not a conv bias that feeds a
+    train-mode BN, whose true gradient is 0).  Returns (worst rel-L2, its
+    name, median rel-L2, number of leaves)."""
+    rels = sorted((_rel_l2(got[name], r), name) for name, r in ref.items()
+                  if not _BIAS_BEFORE_BN.search(name) and float(r.norm()) >= 1e-6)
+    return rels[-1][0], rels[-1][1], statistics.median(r for r, _ in rels), len(rels)
+
+
+def _parity_setup(device, size, batch_size, seed, dtype, perturb=0.0):
+    """The flagship in training mode (seeded torch-default weights, each
+    scaled by ``1 + perturb``), a batch of seeded synthetic court renders
+    at ``size`` (W, H), the court template and points, and the example
+    conf's losses with the consistency loss on."""
+    import torch
+
+    from sports_field_homography_tpu_torch.data.assets import open_court_template
+    from sports_field_homography_tpu_torch.data.synthetic import synthetic_samples
+    from sports_field_homography_tpu_torch.geometry.court import load_court_poi
+    from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
+    from sports_field_homography_tpu_torch.models.layers import init_weights
+    from sports_field_homography_tpu_torch.train.loop import LossConfig
+
+    (w, h), b = size, batch_size
+    model = Reconstructor(ReconstructorConfig(
+        target_size=(w, h), unet_size=(w, h), warp_size=(w, h),
+        resnet_name="resnet34", resnet_input="img+mask"), dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(model, gen)
+    with torch.no_grad():      # identity head: vary theta per sample
+        model.resnet_reg.reg.weight.copy_(
+            torch.randn(model.resnet_reg.reg.weight.shape, generator=gen) * 0.02)
+        for p in model.parameters():
+            p.mul_(1.0 + perturb)
+    model = model.to(device=device, dtype=dtype).train()
+    rng = np.random.RandomState(seed)
+    frames, labels, anno = synthetic_samples(b, COURT_IMG, COURT_POI, (w, h), rng=rng)
+    nz = anno[..., 2].astype(np.float32)
+    batch = {"image": frames, "mask": labels.astype(np.int64),
+             "weight": (0.5 + 0.5 * rng.rand(b, 1)).astype(np.float32),
+             "poi": anno[..., :2].astype(np.float32), "nonzeros": nz,
+             "num_nonzero": np.maximum(nz.sum(1), 1.0).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    court = (torch.from_numpy(open_court_template(COURT_IMG, 4, size=(w, h)))
+             .to(device=device, dtype=dtype) / 4)
+    poi = torch.from_numpy(load_court_poi(COURT_POI).astype(np.float32)).to(device, dtype)
+    cfg = LossConfig(seg_loss="focal", rec_loss="MSE", reproj_loss="RRMSE",
+                     consist_loss="focal", seg_lambda=1.0, rec_lambda=1.0,
+                     reproj_lambda=8.0, consist_lambda=1.0, batch_size=b)
+    return model, batch, court, poi, cfg
+
+
+def parity_step(device, size=(64, 36), batch_size=3, seed=5, dtype=None,
+                consist_labels=None, perturb=0.0):
+    """The losses and gradients of one train step of the flagship
+    (``_parity_setup``) in ``dtype`` (float32 by default; float64 on the
+    CPU for a reference run).  ``consist_labels`` (B, H, W) replaces the
+    run's own consistency labels; ``perturb`` scales every weight by
+    ``1 + perturb`` (one ulp shows how far rounding moves the step).
+
+    Returns (logs as floats, float64 gradients by name on the CPU, the
+    consistency labels the step used, on the CPU)."""
+    import torch
+
+    from sports_field_homography_tpu_torch.train.evaluate import norm_img
+    from sports_field_homography_tpu_torch.train.loop import (
+        compute_losses, consistency_labels)
+
+    model, batch, court, poi, cfg = _parity_setup(
+        device, size, batch_size, seed, dtype or torch.float32, perturb)
+    preds = model(norm_img(batch["image"]), court, poi)
+    used = (consist_labels.to(device) if consist_labels is not None
+            else consistency_labels(preds["warp_mask"], 4))
+    total, logs = compute_losses(preds, batch, 0, cfg, 4, consist_labels=used)
+    total.backward()
+    grads = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return {k: float(v) for k, v in logs.items()}, grads, used.cpu()
+
+
+# module replay bounds.  Where CUDA and the CPU took the same ReLU masks,
+# each tensor's rel-L2 to float64 on CUDA may not exceed MODULE_FACTOR
+# times the CPU f32's (the sums of BN's dgamma and dbeta cancel, and their
+# f32 error grows with the pixel count), or MODULE_FLOOR.  A mask bit whose
+# pre-activation lies within an ulp of 0 follows the last bit of the batch
+# statistics, which the two sum in different orders; each such bit moves
+# a gradient by a discrete step, so a module whose masks differ is held to
+# MODULE_FLIP_RTOL against the CPU.
+MODULE_FLOOR, MODULE_FACTOR, MODULE_FLIP_RTOL = 1e-4, 4.0, 1e-2
+UNET_MODULES = ("inc", "down1", "down2", "down3", "down4", "up1", "up2", "up3", "up4",
+                "outc")
+
+
+def _recording_relu_masks(masks):
+    """A stand-in for the DoubleConv backward's ``bn_relu_bwd`` that calls
+    it and appends the ReLU mask it used, recomputed on the CPU in its
+    order of operations (``ops/bn_relu_bwd.py``), to ``masks``."""
+    import torch
+
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd
+
+    def run(y, g, mean, rstd, gamma, beta):
+        acc = torch.promote_types(y.dtype, torch.float32)
+        yc, m, r, ga, be = (t.detach().cpu().to(acc) for t in (y, mean, rstd, gamma, beta))
+        masks.append((yc - m) * r * ga + be > 0)
+        return bn_relu_bwd(y, g, mean, rstd, gamma, beta)
+
+    return run
+
+
+def module_parity(size, batch_size, seed):
+    """Each UNet module of one f32 train step on the CPU (``_parity_setup``),
+    run again from the inputs and the output cotangent it had in that
+    step: on the GPU in f32, on the CPU in f32 and in float64.
+
+    Every kernel of the train path runs here at the step's own shapes
+    (ragged tiles, the skip pads of odd sizes), on a problem that rounding
+    cannot blow up: one module's forward and backward, where the whole
+    step's gradients are not (see ``scripts/torch_train_parity.py``).
+    Returns {module: (flips, tensors)}: ``flips`` counts the ReLU mask
+    bits of the module's BN+ReLU backward steps that differ, CUDA vs CPU,
+    CUDA vs float64 and CPU vs float64; ``tensors`` maps the module's
+    output, its input gradients and its parameter gradients (not the conv
+    biases that feed a train-mode BN, whose true gradient is 0) to their
+    rel-L2 in the same three pairs."""
+    import copy
+
+    import torch
+
+    from sports_field_homography_tpu_torch.ops import double_conv
+    from sports_field_homography_tpu_torch.train.evaluate import norm_img
+    from sports_field_homography_tpu_torch.train.loop import compute_losses
+
+    model, batch, court, poi, cfg = _parity_setup("cpu", size, batch_size, seed,
+                                                  torch.float32)
+    seen = {}
+
+    def capture(name):
+        def hook(_mod, inputs, out):
+            seen[name] = [tuple(t.detach().clone() for t in inputs), None]
+            out.register_hook(lambda g: seen[name].__setitem__(1, g.detach().clone()))
+        return hook
+
+    handles = [getattr(model, n).register_forward_hook(capture(n)) for n in UNET_MODULES]
+    total, _ = compute_losses(model(norm_img(batch["image"]), court, poi), batch, 0,
+                              cfg, 4)
+    total.backward()
+    for handle in handles:
+        handle.remove()
+    result = {}
+    plain_bwd = double_conv.bn_relu_bwd
+    for name in UNET_MODULES:
+        inputs, cot = seen[name]
+        runs, masks = {}, {}
+        for key, dev, dt in (("cuda", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("cpu64", "cpu", torch.float64)):
+            mod = copy.deepcopy(getattr(model, name)).to(dev, dt).train()
+            mod.zero_grad(set_to_none=True)
+            xs = [t.to(dev, dt, copy=True).requires_grad_() for t in inputs]
+            out = mod(*xs)
+            masks[key] = []
+            double_conv.bn_relu_bwd = _recording_relu_masks(masks[key])
+            try:
+                out.backward(cot.to(dev, dt))
+            finally:
+                double_conv.bn_relu_bwd = plain_bwd
+            got = {"output": out.detach()}
+            got.update({f"input {i} grad": x.grad for i, x in enumerate(xs)})
+            got.update({f"{n} grad": p.grad for n, p in mod.named_parameters()
+                        if not _BIAS_BEFORE_BN.search(n)})
+            runs[key] = {k: v.double().cpu() for k, v in got.items()}
+
+        def flips(a, r):
+            return sum(int((x != y).sum()) for x, y in zip(masks[a], masks[r]))
+
+        result[name] = (
+            (flips("cuda", "cpu"), flips("cuda", "cpu64"), flips("cpu", "cpu64")),
+            {k: (_rel_l2(runs["cuda"][k], v), _rel_l2(runs["cuda"][k], r64), _rel_l2(v, r64))
+             for (k, v), r64 in zip(runs["cpu"].items(), runs["cpu64"].values())})
+    return result
+
+
+def phase_train(dev, card, work):
+    """The train CLI through the training kernels, its checkpoint through
+    the predict CLI, and the step rate."""
+    import torch
+
+    from sports_field_homography_tpu_torch.cli import predict as predict_cli
+    from sports_field_homography_tpu_torch.cli import train as train_cli
+    from sports_field_homography_tpu_torch.data.synthetic import write_synthetic_dataset
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2, deconv2x2_backward
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3
+
+    torch.backends.cudnn.allow_tf32 = True      # the bf16 CLI's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = os.path.join(work, "synth")
+    t0 = time.perf_counter()
+    write_synthetic_dataset(data, 3 * BATCH, BATCH, COURT_IMG, COURT_POI,
+                            size=(640, 360), seed=0)
+    log(f"train: wrote {4 * BATCH} synthetic 640x360 samples in "
+        f"{time.perf_counter() - t0:.1f} s")
+    conf = _train_conf(work, data)
+
+    counters = {"conv3x3": conv3x3, "deconv2x2": deconv2x2,
+                "deconv2x2_backward": deconv2x2_backward, "wgrad3x3": wgrad3x3,
+                "bn_relu_bwd": bn_relu_bwd}
+    for fn in counters.values():
+        fn.launches = 0
+    conv3x3.stats_launches = 0
+    t0 = time.perf_counter()
+    hist = train_cli.main(["-c", conf])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["conv3x3_stats"] = conv3x3.stats_launches
+    log(f"train: kernel launches in the CLI run: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"train: {name} was never launched by the train path")
+    steps = hist["steps"]
+    if len(steps) != 3 or len(hist["validations"]) != 1:
+        raise AssertionError(f"train: {len(steps)} steps and {len(hist['validations'])} "
+                             "validations, expected 3 and 1")
+    for i, st in enumerate(steps):
+        if not all(np.isfinite(v) for v in st.values()):
+            raise AssertionError(f"train: step {i + 1} has a non-finite loss: {st}")
+        log(f"train: step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in st.items()))
+    val = hist["validations"][0]
+    if not all(np.isfinite(v) for v in val.values()):
+        raise AssertionError(f"train: non-finite validation result {val}")
+    log(f"train: validation {json.dumps(val)}; CLI total {secs:.1f} s [{card}]")
+
+    ckpt = os.path.join(hist["cp_dir"], "CP_epoch1.pth")
+    dst = os.path.join(work, "train_predict")
+    predict_cli.process(["--img_dir", os.path.join(data, "frames", "val_game"),
+                         "--load", ckpt, "--dst_dir", dst, "--req_outputs",
+                         "theta,consistency", "--batchsize", str(BATCH),
+                         "--court_img", COURT_IMG, "--court_poi", COURT_POI])
+    with open(os.path.join(dst, "val_game_court.json")) as f:
+        out = json.load(f)
+    out.pop("model")
+    if len(out) != BATCH or not all(np.isfinite(r["score"]) and np.isfinite(r["theta"]).all()
+                                    for r in out.values()):
+        raise AssertionError("train: the predict CLI did not write finite records "
+                             "from the trained checkpoint")
+    log(f"train: the predict CLI loaded {ckpt} and wrote {len(out)} finite records")
+
+    # step rate at the flagship size
+    torch.backends.cudnn.allow_tf32 = True
+    ms = cuda_ms(flagship_train_step(dev, BATCH), warmup=2, runs=5)
+    log(f"train: flagship 640x360 bf16 batch {BATCH}: {ms:.1f} ms/step, "
+        f"{BATCH * 1000.0 / ms:.1f} img/s (CUDA events, median of 5 steps after "
+        f"2 warm-up) [{card}]")
+    return launches
+
+
+def phase_train_parity():
+    """f32 CUDA-vs-CPU parity of the train step and of its UNet modules."""
+    import torch
+
+    # f32 one-step parity, CUDA (TF32 off, deterministic cuDNN algorithms)
+    # against the CPU's plain versions, with a float64 run beside them
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    (lg, gg, _), (lc, gc, _), (_, g64, _) = (
+        parity_step("cuda"), parity_step("cpu"), parity_step("cpu", dtype=torch.float64))
+    worst_loss = 0.0
+    for k in ("Seg_loss", "Rec_loss", "Reproj_loss", "Cons_loss", "Tot_loss"):
+        rtol, atol = (1e-2, 1e-3) if k == "Cons_loss" else (2e-3, 1e-4)
+        if not abs(lg[k] - lc[k]) <= atol + rtol * abs(lc[k]):
+            raise AssertionError(f"train parity: {k} CUDA {lg[k]} vs CPU {lc[k]}")
+        worst_loss = max(worst_loss, abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30))
+    worst, name, median, checked = grad_gaps(gg, gc)
+    if not worst < 2e-2:
+        raise AssertionError(f"train parity: grad {name} rel-L2 {worst:.3e} >= 2e-2")
+    if checked <= 50:
+        raise AssertionError(f"train parity: only {checked} gradients compared")
+    to64 = {d: grad_gaps(g, g64) for d, g in (("CUDA", gg), ("CPU", gc))}
+    log(f"train f32 CUDA vs CPU, one step at 64x36 batch 3: worst loss rel diff "
+        f"{worst_loss:.3e} (bound 2e-3, Cons 1e-2), grad rel-L2 worst {worst:.3e} "
+        f"({name}), median {median:.3e} over {checked} gradients (bound 2e-2); "
+        "against float64: " + ", ".join(f"{d} worst {w:.3e} median {m:.3e}"
+                                        for d, (w, _, m, _) in to64.items()))
+
+    # every UNet module of that step, and of steps at larger and odd sizes,
+    # replayed from the same inputs and cotangent on CUDA and in float64
+    for size, b in (((64, 36), 3), ((128, 72), 3), ((256, 144), 2)):
+        res = module_parity(size, b, 5)
+        for mod, ((flips, _, _), got) in res.items():
+            for t, (cc, c64, p64) in got.items():
+                if flips:
+                    ok, why = cc <= MODULE_FLIP_RTOL, f"{cc:.3e} against the CPU"
+                else:
+                    ok = c64 <= max(MODULE_FLOOR, MODULE_FACTOR * p64)
+                    why = f"{c64:.3e} against float64, CPU f32 {p64:.3e}"
+                if not ok:
+                    raise AssertionError(f"train parity: module {mod} at {size} batch {b} "
+                                         f"({flips} ReLU mask bits differ): {t} rel-L2 {why}")
+        same = [(c64, p64, f"{mod} {t}") for mod, ((f, _, _), got) in res.items() if not f
+                for t, (_, c64, p64) in got.items()]
+        moved = {mod: (f, max(e[0] for e in got.values()))
+                 for mod, ((f, _, _), got) in res.items() if f}
+        c64, p64, what = max(same)
+        log(f"train f32 module replay at {size[0]}x{size[1]} batch {b}: same ReLU masks in "
+            f"{len(same)} tensors of {len(res) - len(moved)} modules, worst CUDA vs float64 "
+            f"{c64:.3e} ({what}; CPU f32 {p64:.3e}; bound max({MODULE_FLOOR:.0e}, "
+            f"{MODULE_FACTOR:g} x CPU's)); mask bits that differ from the CPU's: " + (
+                ", ".join(f"{mod} {f} (worst tensor {e:.3e} vs CPU)"
+                          for mod, (f, e) in moved.items()) or "none")
+            + f" (bound {MODULE_FLIP_RTOL:.0e})")
+    torch.backends.cudnn.deterministic = False
+
+
+def flagship_train_step(dev, batch_size):
+    """A closure running one flagship bf16 train step (seeded random
+    weights) on a fixed batch of synthetic 640x360 court renders."""
+    import torch
+
+    from sports_field_homography_tpu_torch.data.assets import open_court_template
+    from sports_field_homography_tpu_torch.data.synthetic import synthetic_samples
+    from sports_field_homography_tpu_torch.geometry.court import load_court_poi
+    from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
+    from sports_field_homography_tpu_torch.models.layers import init_weights
+    from sports_field_homography_tpu_torch.train.loop import LossConfig, train_step
+    from sports_field_homography_tpu_torch.train.optim import make_optimizer
+
+    model = Reconstructor(ReconstructorConfig(), dtype=torch.bfloat16)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).train()
+    b = batch_size
+    frames, labels, anno = synthetic_samples(b, COURT_IMG, COURT_POI, (640, 360),
+                                             rng=np.random.RandomState(0))
+    nz = anno[..., 2].astype(np.float32)
+    batch = {"image": frames, "mask": labels.astype(np.int64),
+             "weight": np.ones((b,), np.float32), "poi": anno[..., :2].astype(np.float32),
+             "nonzeros": nz, "num_nonzero": np.maximum(nz.sum(1), 1.0).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    court = (torch.from_numpy(open_court_template(COURT_IMG, 4, size=(640, 360)))
+             .float().to(dev) / 4)
+    poi = torch.from_numpy(load_court_poi(COURT_POI).astype(np.float32)).to(dev)
+    cfg = LossConfig(seg_loss="focal", rec_loss="MSE", reproj_loss="RRMSE",
+                     consist_loss="focal", seg_lambda=1.0, rec_lambda=1.0,
+                     reproj_lambda=8.0, consist_lambda=1.0, batch_size=b)
+    opt = make_optimizer("RMSprop", model.parameters(), 1e-4, 1e-6)
+    return lambda: train_step(model, opt, batch, 0, court, poi, cfg)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, PKG)):
         print(f"chip_smoke: {PKG}/ not found beside this script; run it from "
@@ -340,16 +900,24 @@ def main() -> int:
     dev = torch.device("cuda:0")
     phase_build()
     kres = phase_kernels(dev, card)
+    kres.update(phase_train_kernels(dev, card))
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    launches = phase_slice(dev, card, work)
+    launches = phase_predict(dev, card, work)
+    launches.update({k: v for k, v in phase_train(dev, card, work).items()
+                     if k in ("deconv2x2_backward", "wgrad3x3", "bn_relu_bwd")})
+    phase_train_parity()
 
     src = f"{PKG}/csrc"
     table = [
         ("warp_nearest", "warp_nearest.cu", "sports_field_homography_tpu/ops/warp_pallas.py:96"),
         ("conv3x3", "conv3x3.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:151"),
         ("deconv2x2", "deconv2x2.cu", "sports_field_homography_tpu/ops/deconv_pallas.py:186"),
+        ("deconv2x2_backward", "deconv2x2.cu",
+         "sports_field_homography_tpu/ops/deconv_pallas.py:118"),
+        ("wgrad3x3", "wgrad3x3.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:291"),
+        ("bn_relu_bwd", "bn_relu_bwd.cu", "sports_field_homography_tpu/ops/bn_pallas.py:129"),
     ]
     kernels = []
     for name, fname, replaces in table:

@@ -2,10 +2,10 @@
 // with bias and an optional per-channel BN+ReLU prologue on the input.
 //
 // Replaces: sports_field_homography_tpu/ops/conv3x3_pallas.py::conv3x3
-// (forward with bias and prologue, as composed by
-// ops/double_conv.py::double_conv_eval).  The Pallas kernel's training-only
-// stats epilogue and its second input (the TPU's packed level-1 domain)
-// are not carried over.
+// (forward with bias, prologue and the training-only stats epilogue, as
+// composed by ops/double_conv.py::double_conv_eval and double_conv_train;
+// dgrad is this kernel over the cotangent with dgrad_weights).  The second
+// input (x2/wmat2, the TPU's packed level-1 domain) is not carried over.
 //
 // What bounds it on an H100: arithmetic.  A UNet level-1 conv (64->64 at
 // 360x640, batch 8) is 2*M*9*Cin*Cout = 136 GFLOP over ~0.5 GB of bf16
@@ -23,6 +23,14 @@
 // rounded to the input dtype (as the Pallas kernel casts back before its
 // dot); padding cells skip it and stay zero.  Accumulation is f32, bias
 // is added in f32, and the output is rounded once to the input dtype.
+//
+// Stats epilogue (training): per output channel, sum(y) and sum(y*y) of
+// the f32 accumulator after the bias and before the rounding, as the
+// Pallas kernel takes them (conv3x3_pallas.py:235-243).  The Pallas grid
+// carried the sums across its sequential steps in one revisited block;
+// here each block reduces its 64 rows through shared memory in a fixed
+// order and writes one row of a (gridDim.x, 2*Cout) partial matrix, which
+// sum_rows.cu adds up: deterministic, no float atomics.
 #include "tile_gemm.cuh"
 
 namespace sfh {
@@ -33,7 +41,8 @@ __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
                const float* __restrict__ bias, const float* __restrict__ mean,
                const float* __restrict__ inv, const float* __restrict__ beta,
-               T* __restrict__ y, int N, int H, int W, int Cin, int Cout) {
+               T* __restrict__ y, float* __restrict__ partial, int N, int H,
+               int W, int Cin, int Cout) {
   __shared__ __align__(16) TileSmem s;
   const int M = N * H * W;
   const int K = 9 * Cin;
@@ -95,6 +104,14 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
     __syncthreads();
   }
 
+  float bv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int co = n0 + tx * 4 + j;
+    bv[j] = (bias != nullptr && co < Cout) ? bias[co] : 0.f;
+  }
+  float csum[4] = {0.f, 0.f, 0.f, 0.f};
+  float csq[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
@@ -103,8 +120,32 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
     for (int j = 0; j < 4; ++j) {
       const int co = n0 + tx * 4 + j;
       if (co >= Cout) continue;
-      const float b = bias != nullptr ? bias[co] : 0.f;
-      y[(int64_t)m * Cout + co] = from_f32<T>(acc[i][j] + b);
+      const float v = acc[i][j] + bv[j];
+      y[(int64_t)m * Cout + co] = from_f32<T>(v);
+      csum[j] += v;
+      csq[j] += v * v;
+    }
+  }
+  if (partial == nullptr) return;   // uniform across the block
+
+  // stats: 16 row groups (ty) x 64 columns through shared memory (free
+  // after the main loop's last barrier), then 128 threads add the 16
+  // groups of one column's sum or sum of squares in order
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s.a[ty][tx * 4 + j] = csum[j];
+    s.b[ty][tx * 4 + j] = csq[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * kBN) {
+    const int c = threadIdx.x % kBN;
+    const bool sq = threadIdx.x >= kBN;
+    const int co = n0 + c;
+    if (co < Cout) {
+      float t = 0.f;
+#pragma unroll
+      for (int r = 0; r < kThreads / 16; ++r) t += sq ? s.b[r][c] : s.a[r][c];
+      partial[(int64_t)blockIdx.x * 2 * Cout + (sq ? Cout : 0) + co] = t;
     }
   }
 }
@@ -112,17 +153,18 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
 template <typename T>
 void launch(const void* x, const void* wmat, const float* bias,
             const float* mean, const float* inv, const float* beta, void* y,
-            int n, int h, int w, int cin, int cout, cudaStream_t stream) {
+            float* partial, int n, int h, int w, int cin, int cout,
+            cudaStream_t stream) {
   const int64_t m = (int64_t)n * h * w;
   dim3 grid((unsigned)((m + kBM - 1) / kBM), (unsigned)((cout + kBN - 1) / kBN));
   if (mean != nullptr) {
     conv3x3_kernel<T, true><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(wmat), bias, mean, inv,
-        beta, static_cast<T*>(y), n, h, w, cin, cout);
+        beta, static_cast<T*>(y), partial, n, h, w, cin, cout);
   } else {
     conv3x3_kernel<T, false><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(wmat), bias, nullptr,
-        nullptr, nullptr, static_cast<T*>(y), n, h, w, cin, cout);
+        nullptr, nullptr, static_cast<T*>(y), partial, n, h, w, cin, cout);
   }
 }
 
@@ -130,17 +172,21 @@ void launch(const void* x, const void* wmat, const float* bias,
 }  // namespace sfh
 
 // dtype: 0 = float32, 1 = bfloat16.  bias / mean / inv / beta are f32 and
-// may be null (mean, inv and beta together).  Returns cudaGetLastError().
+// may be null (mean, inv and beta together).  partial, when not null, is a
+// (ceil(n*h*w / 64), 2*cout) f32 scratch matrix that receives each block's
+// [sum(y) | sum(y*y)] rows.  Returns cudaGetLastError().
 extern "C" int sfh_conv3x3(const void* x, const void* wmat, const float* bias,
                            const float* mean, const float* inv,
-                           const float* beta, void* y, int n, int h, int w,
-                           int cin, int cout, int dtype, void* stream) {
+                           const float* beta, void* y, float* partial, int n,
+                           int h, int w, int cin, int cout, int dtype,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    sfh::launch<float>(x, wmat, bias, mean, inv, beta, y, n, h, w, cin, cout, st);
+    sfh::launch<float>(x, wmat, bias, mean, inv, beta, y, partial, n, h, w,
+                       cin, cout, st);
   } else if (dtype == 1) {
-    sfh::launch<__nv_bfloat16>(x, wmat, bias, mean, inv, beta, y, n, h, w, cin,
-                               cout, st);
+    sfh::launch<__nv_bfloat16>(x, wmat, bias, mean, inv, beta, y, partial, n,
+                               h, w, cin, cout, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,18 +1,22 @@
-"""Host input pipeline: threaded decode, fixed-size batches, prefetch to
-the device (port of ``data/loader.py``, prediction subset).
+"""Host input pipeline: threaded decode, batches, copies to the device
+(port of ``data/loader.py``).
 
-Batches keep one size: the tail batch is padded with copies of its last
-sample and carries ``num_valid``.  ``device_prefetch`` replaces the JAX
-package's ``jax.device_put`` prefetch: it copies frames through pinned
-host memory with ``non_blocking`` copies, keeping ``depth`` batches in
-flight so the copy of the next batch overlaps the compute of this one.
+By default batches keep one size: the tail batch is padded with copies of
+its last sample and carries ``num_valid`` (predict).  Training takes the
+true smaller tail batch (``pad_last=False``, the JAX CLI's single-device
+``tail: exact``) and a shuffle whose per-epoch order derives from
+``(seed, epoch)`` as in the JAX loader.  ``device_prefetch`` replaces the
+JAX package's ``jax.device_put`` prefetch: it copies a batch's arrays
+through pinned host memory with ``non_blocking`` copies, keeping
+``_IN_FLIGHT`` batches in flight so the copy of the next batch overlaps
+the compute of this one.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -27,36 +31,55 @@ def _collate(samples) -> Dict[str, object]:
     batch: Dict[str, object] = {}
     for k in samples[0]:
         vals = [s[k] for s in samples]
-        batch[k] = (np.stack(vals) if isinstance(vals[0], np.ndarray)
+        batch[k] = (np.stack(vals) if isinstance(vals[0], (np.ndarray, np.generic))
                     else vals)
     return batch
 
 
 class Loader:
-    """Ordered, padded-batch loader over an indexable dataset.
+    """Batch loader over an indexable dataset, in order or shuffled.
 
     Yields dicts of stacked numpy arrays (names as lists) plus ``valid``
     ((B,) bool) and ``num_valid`` (int).  Samples decode on a thread pool
     of ``num_workers``; at most ``_READY_BATCHES`` batches wait ready.
+    ``shuffle`` needs a ``seed``: epoch e's order is a permutation drawn
+    from ``np.random.default_rng([seed, e])`` (``set_epoch``).
     """
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 4):
+    def __init__(self, dataset, batch_size: int, num_workers: int = 4,
+                 shuffle: bool = False, seed: Optional[int] = None,
+                 pad_last: bool = True):
+        if shuffle and seed is None:
+            raise ValueError("a shuffled Loader needs a seed")
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.num_workers = max(1, int(num_workers))
+        self.shuffle = shuffle
+        self.seed = seed
+        self.pad_last = pad_last
+        self._epoch = 0
 
     def __len__(self) -> int:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def _order(self) -> np.ndarray:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng([int(self.seed), self._epoch]).shuffle(order)
+        return order
+
     def _batches_of_indices(self):
-        n, bs = len(self.dataset), self.batch_size
-        for start in range(0, n, bs):
-            idx = np.arange(start, min(start + bs, n))
-            valid = np.ones(bs, bool)
-            pad = bs - len(idx)
+        order, bs = self._order(), self.batch_size
+        for start in range(0, len(order), bs):
+            idx = order[start:start + bs]
+            valid = np.ones(len(idx), bool)
+            pad = bs - len(idx) if self.pad_last else 0
             if pad:
                 idx = np.concatenate([idx, np.full(pad, idx[-1])])
-                valid[bs - pad:] = False
+                valid = np.concatenate([valid, np.zeros(pad, bool)])
             yield idx, valid
 
     def __iter__(self) -> Iterator[Dict[str, object]]:
@@ -104,20 +127,23 @@ class Loader:
 
 
 def device_prefetch(iterator, device: torch.device):
-    """Copy each batch's ``image`` to ``device`` ahead of use.
+    """Copy each batch's numpy arrays to ``device`` ahead of use (other
+    entries, such as names, pass through).
 
-    On a CUDA device it goes through pinned memory with a ``non_blocking``
-    copy on the current stream, so ``_IN_FLIGHT`` batches are on their way
-    while the caller computes.
+    On a CUDA device they go through pinned memory with ``non_blocking``
+    copies on the current stream, so ``_IN_FLIGHT`` batches are on their
+    way while the caller computes.
     """
     device = torch.device(device)
     pin = device.type == "cuda"
 
     def put(batch):
-        t = torch.from_numpy(batch["image"])
-        if pin:
-            t = t.pin_memory()
-        batch["image"] = t.to(device, non_blocking=pin)
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray):
+                t = torch.from_numpy(v)
+                if pin:
+                    t = t.pin_memory()
+                batch[k] = t.to(device, non_blocking=pin)
         return batch
 
     buf = []
@@ -132,3 +158,4 @@ def device_prefetch(iterator, device: torch.device):
         if nxt is not None:
             buf.append(put(nxt))
         yield out
+

@@ -1,8 +1,9 @@
-"""A small PNG reader on the standard library's zlib and numpy.
+"""A small PNG reader and writer on the standard library's zlib and numpy.
 
 Reads 8-bit, non-interlaced grayscale (L), gray+alpha, RGB and RGBA PNGs:
 enough for the court templates and for frames, where Pillow is absent.
-Pillow is used instead wherever it is installed.
+Pillow is used instead wherever it is installed.  Writes 8-bit L and RGB
+PNGs with filter 0 (synthetic frames and masks).
 
 PNG filters predict each byte from its left, upper and upper-left
 neighbours (Sub, Up, Average, Paeth), so a row cannot be undone in one
@@ -18,7 +19,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_png"]
+__all__ = ["read_png", "write_png"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}       # PNG colour type -> channels
@@ -78,3 +79,28 @@ def read_png(path: str) -> np.ndarray:
     rows = rows[:h * (w * c + 1)].reshape(h, w * c + 1)
     img = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, c))
     return img[..., 0] if c == 1 else img
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write (H, W) uint8 as an L PNG or (H, W, 3) uint8 as an RGB PNG,
+    every row with filter 0."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim == 2:
+        color, c = 0, 1
+    elif img.ndim == 3 and img.shape[2] == 3:
+        color, c = 2, 3
+    else:
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3), got {img.shape}")
+    h, w = img.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], 1)
+
+    def chunk(kind, data):
+        body = kind + data
+        return struct.pack(">I", len(data)) + body + struct.pack(
+            ">I", zlib.crc32(body) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE)
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)))
+        f.write(chunk(b"IEND", b""))

@@ -2,8 +2,9 @@
 
 kornia's ``HomographyWarper`` as the reference uses it: a normalized
 meshgrid over the output with endpoints included, mapped through theta,
-then sampled with ``align_corners=False``.  The sampler itself is the
-nearest-warp kernel in ``ops/warp.py``.
+then sampled with ``align_corners=False``.  The nearest sampler (predict)
+is the kernel in ``ops/warp.py``; the bilinear one (training, where the
+gradient reaches theta) is ``warp_bilinear``.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 from .homography import transform_points
 
 __all__ = ["normalized_grid", "warp_grid", "subsampled_warp_grid",
-           "_unnormalize"]
+           "warp_bilinear", "_unnormalize"]
 
 
 def _f32(v: float) -> float:
@@ -77,3 +78,41 @@ def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
     """[-1, 1] -> pixel coordinates, as ``grid_sample`` with
     ``align_corners=False``."""
     return ((coord + 1.0) * size - 1.0) * 0.5
+
+
+def warp_bilinear(template: torch.Tensor, theta: torch.Tensor,
+                  out_hw) -> torch.Tensor:
+    """Bilinear homography warp of a (Ht, Wt) float template: (B, Ho, Wo),
+    zero outside it, differentiable in theta.
+
+    ``grid_sample(mode='bilinear', padding_mode='zeros',
+    align_corners=False)`` over the ``warp_grid`` (what the reference
+    trains with), written as four gathers and two lerps in the order of the
+    JAX training warp ``ops/interval_warp.warp_bilinear_interval``:
+    ``top = v00 * (1 - tx) + v01 * tx``, then ``top * (1 - ty) + bot * ty``.
+    The order matters: the consistency labels are ``trunc(warp * classes)``,
+    and inside a class region the lerp of equal values lands one ulp
+    either side of the value depending on it.  ``F.grid_sample``'s weight
+    products flip 1.4 % of those labels against the JAX warp; this order
+    flips none (CPU, float32).  The gradient reaches theta through the
+    lerp weights.
+    """
+    if theta.dim() == 4:
+        theta = theta[:, 0]
+    ht, wt = template.shape
+    grid = warp_grid(theta, *out_hw)
+    u = _unnormalize(grid[..., 0], wt)
+    v = _unnormalize(grid[..., 1], ht)
+    u0, v0 = torch.floor(u), torch.floor(v)
+    tx, ty = u - u0, v - v0
+    flat = template.to(grid.dtype).reshape(-1)
+    zero = torch.zeros((), dtype=grid.dtype, device=grid.device)
+
+    def corner(row, col):
+        valid = (col >= 0) & (col < wt) & (row >= 0) & (row < ht)
+        idx = row.clamp(0, ht - 1).long() * wt + col.clamp(0, wt - 1).long()
+        return torch.where(valid, flat[idx], zero)
+
+    top = corner(v0, u0) * (1.0 - tx) + corner(v0, u0 + 1.0) * tx
+    bot = corner(v0 + 1.0, u0) * (1.0 - tx) + corner(v0 + 1.0, u0 + 1.0) * tx
+    return top * (1.0 - ty) + bot * ty

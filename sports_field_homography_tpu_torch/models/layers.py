@@ -1,4 +1,5 @@
-"""Shared layer helpers: eval BatchNorm, NHWC <-> NCHW views, seeded init.
+"""Shared layer helpers: BatchNorm (eval and train), NHWC <-> NCHW views,
+seeded init.
 
 The port keeps activations NHWC (what the CUDA kernels take).  cuDNN ops
 (the ResNet, the UNet stem, max-pooling) run on ``x.permute(0, 3, 1, 2)``:
@@ -16,9 +17,11 @@ import math
 import torch
 from torch import nn
 
-__all__ = ["BN_EPS", "bn_eval", "nchw", "nhwc", "max_pool", "init_weights"]
+__all__ = ["BN_EPS", "BN_MOMENTUM", "bn_eval", "bn_train", "bn_apply",
+           "update_running_stats", "nchw", "nhwc", "max_pool", "init_weights"]
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1            # torch convention: weight of the new batch stat
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -39,6 +42,44 @@ def bn_eval(x: torch.Tensor, bn: nn.BatchNorm2d, dim: int = 1) -> torch.Tensor:
     y = ((x.float() - bn.running_mean.float().view(shape)) * inv.view(shape)
          + bn.bias.float().view(shape))
     return y.to(x.dtype)
+
+
+@torch.no_grad()
+def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                         var: torch.Tensor, n: int) -> None:
+    """``(1 - m) * running + m * stat`` with the unbiased variance
+    ``var * n / (n - 1)`` (the JAX package's ``batch_norm_apply``, and
+    torch's BatchNorm2d), plus ``num_batches_tracked``, in place."""
+    m = BN_MOMENTUM
+    unbiased = var.float() * (n / max(n - 1, 1))
+    bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean.float())
+    bn.running_var.copy_((1.0 - m) * bn.running_var + m * unbiased)
+    bn.num_batches_tracked.add_(1)
+
+
+def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d, dim: int = 1) -> torch.Tensor:
+    """Train-mode BatchNorm over channel axis ``dim``, differentiable.
+
+    Moments in f32 as E[x] and E[x^2] - E[x]^2 (biased variance
+    normalizes), then ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
+    cast back to x's dtype; the running stats update in place (the JAX
+    package's ``batch_norm_apply`` in train mode)."""
+    axes = tuple(a for a in range(x.dim()) if a != dim % x.dim())
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    xf = x.float()
+    mean = xf.mean(dim=axes)
+    var = (xf * xf).mean(dim=axes) - mean * mean
+    n = x.numel() // x.shape[dim]
+    update_running_stats(bn, mean.detach(), var.detach(), n)
+    inv = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (xf - mean.view(shape)) * inv.view(shape) + bn.bias.float().view(shape)
+    return y.to(x.dtype)
+
+
+def bn_apply(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool,
+             dim: int = 1) -> torch.Tensor:
+    return bn_train(x, bn, dim) if training else bn_eval(x, bn, dim)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int,

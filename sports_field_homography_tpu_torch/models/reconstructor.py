@@ -1,5 +1,6 @@
-"""Reconstructor: UNet segmentation + ResNet STN + court-template warp,
-inference (port of ``models/reconstructor.py``).
+"""Reconstructor: UNet segmentation + ResNet STN + court-template warp
+(port of ``models/reconstructor.py``): ``forward`` is the training and
+validation forward, ``predict`` the inference one.
 
 Conventions as in the JAX package: images NHWC in [0, 1]; theta
 (B, 1, 3, 3) maps frame -> court in normalized [-1, 1] coordinates; the
@@ -21,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..geometry.homography import transform_poi
+from ..geometry.warp import warp_bilinear
 from ..ops.warp import warp_nearest
 from .layers import nchw, nhwc
 from .losses import cross_entropy_map
@@ -142,6 +145,39 @@ class Reconstructor(nn.Module):
         w, h = self.config.warp_size
         return warp_nearest(court_labels, theta, (h, w), sample_hw=sample_hw,
                             value_step=value_step)
+
+    def forward(self, x: torch.Tensor, court_template: torch.Tensor,
+                court_poi: torch.Tensor) -> dict:
+        """Training / validation forward (the JAX ``Reconstructor.__call__``):
+        BatchNorm uses batch statistics and updates its running stats when
+        the module is in training mode.
+
+        Args:
+          x: (B, H, W, 3) float32 frames in [0, 1].
+          court_template: (Ht, Wt) float32 court labels / mask_classes.
+          court_poi: (N, 2) court points of interest in [-1, 1].
+        Returns:
+          dict with ``logits`` (NHWC, compute dtype), ``theta`` (B, 1, 3, 3)
+          f32, ``poi`` (B, N, 2) in [0, 1] and ``warp_mask`` (B, h, w) f32,
+          the bilinear warp of the template at ``warp_size`` (the
+          reference trains with bilinear; nearest is for inference).
+        """
+        cfg = self.config
+        ret = {}
+        logits = uv = None
+        if cfg.use_unet:
+            logits, _, uv = self.forward_unet(x)
+            ret["logits"] = logits
+            if uv is not None:
+                ret["uv"] = uv
+        if cfg.use_resnet:
+            theta = self.resnet_reg(self._stn_input(x, logits, uv))
+            ret["theta"] = theta
+            ret["poi"] = transform_poi(theta, court_poi)
+            if cfg.use_warper:
+                w, h = cfg.warp_size
+                ret["warp_mask"] = warp_bilinear(court_template, theta, (h, w))
+        return ret
 
     def predict(self, x: torch.Tensor, court_labels: Optional[torch.Tensor] = None,
                 value_step: float = 1.0, consistency: bool = True) -> dict:

@@ -1,10 +1,12 @@
-"""ResNet Spatial Transformer head, inference (port of ``models/resnet.py``).
+"""ResNet Spatial Transformer head (port of ``models/resnet.py``).
 
 torchvision-style ResNet with a 7x7 stem over any number of input
 channels and a 9-way linear head that emits a 3x3 homography.  It runs
 on cuDNN (the JAX package has no Pallas kernel here) on channels-last
-views; eval BN is computed in f32 and cast back, as in the JAX package.
-Only the basic-block variants (resnet18, resnet34) are ported so far.
+views; BN is computed in f32 and cast back, as in the JAX package, with
+batch moments and a running-stat update in training mode
+(``layers.bn_train``).  Only the basic-block variants (resnet18,
+resnet34) are ported so far.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import bn_eval, nchw
+from .layers import bn_apply, nchw
 
 __all__ = ["BasicBlock", "ResNetSTN", "resnet_models"]
 
@@ -48,11 +50,12 @@ class BasicBlock(nn.Module):
         return pairs
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(bn_eval(_conv(x, self.conv1), self.bn1))
-        out = bn_eval(_conv(out, self.conv2), self.bn2)
+        t = self.training
+        out = torch.relu(bn_apply(_conv(x, self.conv1), self.bn1, t))
+        out = bn_apply(_conv(out, self.conv2), self.bn2, t)
         identity = x
         if self.downsample is not None:
-            identity = bn_eval(_conv(x, self.downsample[0]), self.downsample[1])
+            identity = bn_apply(_conv(x, self.downsample[0]), self.downsample[1], t)
         return torch.relu(out + identity)
 
 
@@ -103,7 +106,7 @@ class ResNetSTN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = nchw(x)                       # channels-last view
-        x = torch.relu(bn_eval(_conv(x, self.conv0), self.bn1))
+        x = torch.relu(bn_apply(_conv(x, self.conv0), self.bn1, self.training))
         x = F.max_pool2d(x, 3, 2, 1)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = stage(x)

@@ -1,8 +1,10 @@
-"""UNet court segmentation, deconv variant, inference (port of
-``models/unet.py``).
+"""UNet court segmentation, deconv variant (port of ``models/unet.py``).
 
 Activations are NHWC.  Every 3x3 conv except the 3-channel stem runs K2
-(``ops/double_conv.py``), every up-conv K3 (``ops/deconv.py``).  Parameter
+(``ops/double_conv.py``), every up-conv K3 (``ops/deconv.py``).  In
+training mode each DoubleConv runs the ``double_conv_train`` autograd
+Function (K2 with stats, K5, K7-bwd) and updates its BN running stats;
+the up-convs' backward is K3-bwd.  Parameter
 names follow the reference (``inc.double_conv.0.weight``,
 ``down1.maxpool_conv.1.double_conv...``, ``up1.up.weight``,
 ``outc.conv.weight``).  The reference inlines these layers into its
@@ -18,8 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.deconv import deconv2x2
-from ..ops.double_conv import double_conv_eval
-from .layers import BN_EPS, max_pool
+from ..ops.double_conv import double_conv_eval, double_conv_train
+from .layers import BN_EPS, max_pool, update_running_stats
 
 __all__ = ["DoubleConv", "Down", "Up", "OutConv", "unet_layers", "unet_forward"]
 
@@ -48,6 +50,14 @@ class DoubleConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c1, bn1, _, c2, bn2, _ = self.double_conv
+        if self.training:
+            out, m1, v1, m2, v2 = double_conv_train(
+                x, _hwio(c1.weight), c1.bias, bn1.weight, bn1.bias,
+                _hwio(c2.weight), c2.bias, bn2.weight, bn2.bias, BN_EPS)
+            n = x.shape[0] * x.shape[1] * x.shape[2]
+            update_running_stats(bn1, m1, v1, n)
+            update_running_stats(bn2, m2, v2, n)
+            return out
         return double_conv_eval(
             x, _hwio(c1.weight), c1.bias, bn1.weight, bn1.bias,
             bn1.running_mean, bn1.running_var,

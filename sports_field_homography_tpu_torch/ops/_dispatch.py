@@ -41,3 +41,9 @@ def stream_handle(device: torch.device) -> int:
     """PyTorch's current stream on ``device``; kernels launch on it (under
     ``torch.cuda.device(device)``) and never synchronise."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' accumulation dtype: float32 for bf16 and f32
+    inputs, float64 for float64 inputs (a float64 reference run)."""
+    return torch.promote_types(dtype, torch.float32)

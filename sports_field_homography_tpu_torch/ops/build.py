@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes``.  The library is built on first use into
+Each source compiles with its own ``nvcc`` process, all started together,
+and the objects link into one shared library with a plain C interface,
+loaded with ``ctypes``.  The library is built on first use into
 ``build/torch_kernels/`` at the root of the checkout, under a name keyed by
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing here runs at import time: the CPU
@@ -28,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,8 +39,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sfh_warp_nearest": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _P, _P],
-    "sfh_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sfh_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sfh_deconv2x2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sfh_deconv2x2_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sfh_wgrad3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sfh_bn_relu_bwd_reduce": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sfh_bn_relu_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "sfh_sum_rows": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -69,24 +75,49 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(out_dir: Path, tag: str) -> Path:
+    """One nvcc per source, all at once, then one link; returns the .so."""
+    so = out_dir / f"libsfh_kernels_{tag}.so"
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
+    cus = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [out_dir / f"{s.stem}_{tag}.{os.getpid()}.o" for s in cus]
+    procs = [(subprocess.Popen([nvcc] + NVCC_FLAGS + ["-c", "-o", str(o), str(s)],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True), s)
+             for s, o in zip(cus, objs)]
+    log, failed = [], []
+    for proc, src in procs:
+        out, err = proc.communicate()
+        log.append(f"== {src.name} (exit {proc.returncode})\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{err[-3000:]}")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp)]
+                              + [str(o) for o in objs],
+                              capture_output=True, text=True)
+        log.append(f"== link (exit {link.returncode})\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link:\n{link.stderr[-3000:]}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    (out_dir / f"libsfh_kernels_{tag}.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    os.replace(tmp, so)
+    return so
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     out_dir = build_dir()
-    so = out_dir / f"libsfh_kernels_{_digest()}.so"
+    tag = _digest()
+    so = out_dir / f"libsfh_kernels_{tag}.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)] + cus
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = out_dir / (so.stem + ".log")
-        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
-        os.replace(tmp, so)
+        so = _compile(out_dir, tag)
         load_library.build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -1,12 +1,22 @@
-"""K2: 3x3, pad-1 convolution over NHWC, with bias and an optional
-BN+ReLU prologue on the input.
+"""K2: 3x3, pad-1 convolution over NHWC, with bias, an optional BN+ReLU
+prologue on the input and an optional stats epilogue on the output.
 
-Port of ``ops/conv3x3_pallas.py::conv3x3`` (forward).  The CUDA kernel is
+Port of ``ops/conv3x3_pallas.py::conv3x3``.  The CUDA kernel is
 ``csrc/conv3x3.cu``: an implicit GEMM with f32 accumulation and one
-rounding of ``conv + bias`` to the input dtype.  The plain version is
-``F.conv2d`` in the input dtype, with the bias added in f32; given float32
-copies of bf16 inputs it computes the kernel's bf16 result before that
-last rounding.
+rounding of ``conv + bias`` to the input dtype.  With ``stats=True`` it
+also returns the (2, Cout) f32 sums ``[sum(y), sum(y*y)]`` over N*H*W,
+taken on the f32 accumulator after the bias and before the rounding
+(the BatchNorm batch statistics of the training DoubleConv); the block
+partials are added by ``ops/reduce.column_sums`` in a fixed order.
+
+The plain version is ``F.conv2d`` in the input dtype, with the bias added
+in f32; given float32 copies of bf16 inputs it computes the kernel's bf16
+result before that last rounding.  With ``stats`` it runs the conv in f32
+on the (bf16-valued) inputs, adds the bias, takes the sums and then
+rounds, as the kernel does.
+
+A dgrad needs no kernel of its own: it is this conv, without bias, over
+the cotangent with ``dgrad_weights`` (rot180, channel-transposed).
 """
 from __future__ import annotations
 
@@ -17,15 +27,26 @@ import torch.nn.functional as F
 
 from . import _dispatch
 from .build import check, load_library
+from .reduce import column_sums
 
-__all__ = ["conv3x3", "conv3x3_plain", "apply_prologue"]
+__all__ = ["conv3x3", "conv3x3_plain", "apply_prologue", "dgrad_weights"]
+
+_ROWS_PER_BLOCK = 64         # kBM in csrc/tile_gemm.cuh
+
+
+def dgrad_weights(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Cout) HWIO -> (3, 3, Cout, Cin): the weights whose
+    conv3x3 over the cotangent is the input gradient,
+    dx[p] = sum_k dy[p + 1 - k] W[k] (``conv3x3_pallas.dgrad_weights``)."""
+    return w.flip(0, 1).transpose(2, 3)
 
 
 def apply_prologue(x: torch.Tensor, prologue) -> torch.Tensor:
     """relu((x - mean) * inv + beta) per channel (last axis), computed in
     f32 and rounded back to x's dtype."""
     mean, inv, beta = prologue
-    return torch.relu((x.float() - mean) * inv + beta).to(x.dtype)
+    acc = _dispatch.acc_dtype(x.dtype)
+    return torch.relu((x.to(acc) - mean) * inv + beta).to(x.dtype)
 
 
 def _check(x, w):
@@ -38,20 +59,30 @@ def _check(x, w):
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
-                  prologue: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                  prologue: Optional[Sequence[torch.Tensor]] = None,
+                  stats: bool = False):
     _check(x, w)
     if prologue is not None:
         x = apply_prologue(x, prologue)
+    dt = x.dtype
+    acc = _dispatch.acc_dtype(dt)
+    if stats:
+        x, w = x.to(acc), w.to(dt).to(acc)
     y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
                  padding=1).permute(0, 2, 3, 1)
     if bias is not None:
-        y = y.float() + bias.float()
-    return y.to(x.dtype).contiguous()
+        y = y.to(acc) + bias.to(acc)
+    if stats:
+        y = y.to(acc)
+        sums = torch.stack([y.sum(dim=(0, 1, 2)), (y * y).sum(dim=(0, 1, 2))])
+        return y.to(dt).contiguous(), sums
+    return y.to(dt).contiguous()
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor,
             bias: Optional[torch.Tensor] = None,
-            prologue: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+            prologue: Optional[Sequence[torch.Tensor]] = None,
+            stats: bool = False):
     """y = conv3x3(prologue(x), w) + bias over NHWC.
 
     Args:
@@ -61,14 +92,16 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
       prologue: optional (mean, inv, beta) per-input-channel vectors;
         applies relu((x - mean) * inv + beta) to x first.  The zero padding
         stays zero.
+      stats: also return the (2, Cout) f32 sums [sum(y), sum(y*y)] over
+        N*H*W, of the f32 result before its rounding to x's dtype.
     Returns:
-      (N, H, W, Cout) in x's dtype.
+      (N, H, W, Cout) in x's dtype, or (y, sums) with ``stats``.
     """
     extra = [bias] if bias is not None else []
     if prologue is not None:
         extra += list(prologue)
     if _dispatch.on_cpu(x, w, *extra):
-        return conv3x3_plain(x, w, bias, prologue)
+        return conv3x3_plain(x, w, bias, prologue, stats)
     _check(x, w)
     code_dt = _dispatch.dtype_code(x.dtype)
     n, h, wd, cin = x.shape
@@ -80,17 +113,25 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     pro = ([t.float().contiguous() for t in prologue]
            if prologue is not None else [None, None, None])
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    m = n * h * wd
     if y.numel() == 0:
-        return y
+        zeros = torch.zeros((2, cout), dtype=torch.float32, device=x.device)
+        return (y, zeros) if stats else y
+    part = (torch.empty((-(-m // _ROWS_PER_BLOCK), 2 * cout), dtype=torch.float32,
+                        device=x.device) if stats else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
         code = load_library().sfh_conv3x3(
             x.data_ptr(), wmat.data_ptr(), ptr(b), ptr(pro[0]), ptr(pro[1]),
-            ptr(pro[2]), y.data_ptr(), n, h, wd, cin, cout, code_dt,
+            ptr(pro[2]), y.data_ptr(), ptr(part), n, h, wd, cin, cout, code_dt,
             _dispatch.stream_handle(x.device))
     check(code, "conv3x3")
     conv3x3.launches += 1
-    return y
+    if not stats:
+        return y
+    conv3x3.stats_launches += 1
+    return y, column_sums(part).view(2, cout)
 
 
 conv3x3.launches = 0
+conv3x3.stats_launches = 0    # the subset of launches with the stats epilogue

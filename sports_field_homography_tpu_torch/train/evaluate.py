@@ -1,0 +1,94 @@
+"""Validation metrics for the Reconstructor (port of ``train/evaluate.py``,
+``make_eval_step`` and ``eval_reconstructor``).
+
+The model runs in eval mode (running BN statistics) with the same forward
+as training: bilinear warp, PoI projection.  Keys as in the JAX package:
+val_seg_score, val_rec_score, val_reproj_score, val_reproj_px,
+val_consist_score (the UV head is not trained by this port yet).  The
+loaders of this port yield the true (ragged) tail batch, so every batch
+mean is over real samples, which is what the JAX package's
+``valid``-masked means compute on its padded tail.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable
+
+import torch
+
+from ..models.losses import cross_entropy_map, mse_map, reprojection_loss
+
+__all__ = ["norm_img", "eval_step", "eval_reconstructor"]
+
+
+def norm_img(img: torch.Tensor) -> torch.Tensor:
+    """uint8 frames -> float32 in [0, 1] (true division, as the JAX
+    package's ``u8 / 255``); float frames pass through."""
+    return img.float() / 255.0 if img.dtype == torch.uint8 else img
+
+
+def _per_sample(loss_map: torch.Tensor) -> torch.Tensor:
+    return loss_map.float().mean(dim=tuple(range(1, loss_map.dim())))
+
+
+@torch.no_grad()
+def eval_step(model, batch: Dict[str, torch.Tensor], court_template, court_poi,
+              target_size, weight_semantics: str = "ref") -> Dict[str, torch.Tensor]:
+    """Per-batch metrics (the JAX ``make_eval_step``'s ``_step`` with
+    per-sample weights)."""
+    preds = model(norm_img(batch["image"]), court_template, court_poi)
+    nc = model.config.mask_classes
+    out: Dict[str, torch.Tensor] = {}
+    logits, warp = preds.get("logits"), preds.get("warp_mask")
+    gt_i = batch["mask"].long()
+    w = batch["weight"].reshape(-1).float()
+
+    def seg_rec(loss_map):
+        per = _per_sample(loss_map)
+        if weight_semantics == "ref":   # the reference's outer-product quirk
+            return per.mean() * w.mean()
+        return (per * w).mean()
+
+    if logits is not None:
+        out["seg"] = seg_rec(cross_entropy_map(logits, gt_i))
+    if warp is not None:
+        out["rec"] = seg_rec(mse_map(warp, gt_i.float() / float(nc)))
+    if logits is not None and warp is not None:
+        labels = (warp * nc).to(torch.int32)
+        out["consist"] = _per_sample(cross_entropy_map(logits, labels)).mean()
+    if "poi" in preds and "poi" in batch:
+        gt, nz, nn = (batch[k].float() for k in ("poi", "nonzeros", "num_nonzero"))
+        out["reproj_sum"] = reprojection_loss(preds["poi"], gt, nz, nn, "none").sum()
+        scale = torch.tensor([float(target_size[0]), float(target_size[1])],
+                             device=gt.device)
+        out["reproj_px_sum"] = reprojection_loss(preds["poi"] * scale, gt * scale,
+                                                 nz, nn, "none").sum()
+    return out
+
+
+def eval_reconstructor(model, batches: Iterable[Dict[str, torch.Tensor]],
+                       court_template, court_poi, target_size,
+                       weight_semantics: str = "ref") -> Dict[str, float]:
+    """Validation over device batches (the JAX ``eval_reconstructor``):
+    seg/rec/consist are means over batches, reprojection means over
+    samples.  The model's train/eval mode is restored afterwards."""
+    was_training = model.training
+    model.eval()
+    sums = {"seg": 0.0, "rec": 0.0, "consist": 0.0, "reproj_sum": 0.0,
+            "reproj_px_sum": 0.0}
+    n_batches = n_samples = 0
+    try:
+        for batch in batches:
+            out = eval_step(model, batch, court_template, court_poi,
+                            target_size, weight_semantics)
+            for k, v in out.items():
+                sums[k] += float(v)
+            n_batches += 1
+            n_samples += int(batch["image"].shape[0])
+    finally:
+        model.train(was_training)
+    nb, ns = max(n_batches, 1), max(n_samples, 1)
+    return {"val_seg_score": sums["seg"] / nb,
+            "val_rec_score": sums["rec"] / nb,
+            "val_reproj_score": sums["reproj_sum"] / ns,
+            "val_reproj_px": sums["reproj_px_sum"] / ns,
+            "val_consist_score": sums["consist"] / nb}

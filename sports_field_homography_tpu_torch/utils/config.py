@@ -1,5 +1,5 @@
-"""Argparse + YAML-overlay configuration (port of ``utils/config.py``,
-the prediction arguments the predict slice uses).
+"""Argparse + YAML-overlay configuration (port of ``utils/config.py``:
+the prediction and training arguments).
 
 Same flag names and defaults as the JAX package, and the same overlay:
 a ``conf.yaml`` beside the checkpoint replaces parsed values key by key
@@ -10,10 +10,11 @@ not carried over: the port always runs its CUDA kernels on a CUDA device.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
-__all__ = ["parse_config", "get_prediction_args", "replace_args",
-           "resolve_asset"]
+__all__ = ["parse_config", "get_prediction_args", "get_training_args",
+           "replace_args", "resolve_asset"]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -30,13 +31,33 @@ def resolve_asset(path: str) -> str:
 
 
 def parse_config(path_to_yaml: str):
-    """Parse a YAML config file; ``None`` (with a message) if unreadable."""
-    import yaml
+    """Parse a YAML config file; ``None`` (with a message) if unreadable.
 
+    A JSON document (JSON is valid YAML) is read by JSON's rules, so that
+    ``1e-06`` is a number as JSON means it (PyYAML's YAML 1.1 reads it as
+    a string).  Anything else needs PyYAML; without it a ``RuntimeError``
+    says that the file must be JSON.
+    """
     try:
         with open(path_to_yaml, "r") as file:
-            return yaml.safe_load(file)
-    except (OSError, yaml.YAMLError):
+            text = file.read()
+    except OSError:
+        print("Error reading the config file:", path_to_yaml)
+        return None
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError as e:
+        json_error = e
+    try:
+        import yaml
+    except ImportError:
+        raise RuntimeError(
+            f"{path_to_yaml}: PyYAML is not installed, so the config must be "
+            f"JSON (which is valid YAML), and this file is not: {json_error}"
+        ) from None
+    try:
+        return yaml.safe_load(text)
+    except yaml.YAMLError:
         print("Error reading the config file:", path_to_yaml)
         return None
 
@@ -103,6 +124,50 @@ def get_prediction_args(argv=None):
                         help="Fold BatchNorm into conv weights at load "
                              "(inference-only; 0 disables)")
     parser.add_argument("--resume", action="store_true", default=False)
+    return parser.parse_args(argv)
+
+
+def get_training_args(argv=None):
+    """Training arguments (the JAX package's ``get_training_args``; the
+    ones outside the ported slice are accepted and refused by the CLI)."""
+    parser = _base_parser()
+    parser.add_argument("--viz", action="store_true", default=False)
+    parser.add_argument("--resnet_pretrained", type=str, default=None)
+    parser.add_argument("--mask_dir", dest="mask_dir", type=str, default=None)
+    parser.add_argument("--anno_dir", dest="anno_dir", type=str, default=None)
+    parser.add_argument("--anno_keys", dest="anno_keys", type=str, default=None)
+    parser.add_argument("--val_names", dest="val_names", type=str, default=None)
+    parser.add_argument("--aug", dest="aug", type=str, default=None)
+    parser.add_argument("--only_ncaam", action="store_true", default=False)
+    parser.add_argument("--opt", dest="opt", type=str, default="RMSprop")
+    parser.add_argument("--epochs", dest="epochs", type=int, default=8)
+    parser.add_argument("--lr", dest="lr", type=float, default=0.0001)
+    parser.add_argument("--weight_decay", dest="weight_decay", type=float,
+                        default=1e-8)
+    parser.add_argument("--val_step_n", dest="val_step_n", type=int, default=None)
+    parser.add_argument("--cp_dir", dest="cp_dir", type=str, default=None)
+    parser.add_argument("--log_dir", dest="log_dir", type=str, default=None)
+    parser.add_argument("--grad_accum", dest="grad_accum", type=int, default=1)
+    parser.add_argument("--async_ckpt", action="store_true", default=False)
+    parser.add_argument("--resume", action="store_true", default=False)
+    parser.add_argument("--data_seed", dest="data_seed", type=int, default=0,
+                        help="Seed of the train shuffle; each epoch's order "
+                             "derives from (seed, epoch)")
+    parser.add_argument("--tail", type=str, default=None,
+                        choices=("exact", "pad"),
+                        help="Last train batch: 'exact' (the true smaller "
+                             "batch, the default and the one ported)")
+    parser.add_argument("--rec_loss", type=str, default="MSE")
+    parser.add_argument("--seg_loss", type=str, default="CE")
+    parser.add_argument("--reproj_loss", type=str, default=None)
+    parser.add_argument("--consist_loss", type=str, default=None)
+    parser.add_argument("--consist_start_iter", type=int, default=0)
+    parser.add_argument("--seg_lambda", type=float, default=2.0)
+    parser.add_argument("--rec_lambda", type=float, default=2.0)
+    parser.add_argument("--reproj_lambda", type=float, default=8.0)
+    parser.add_argument("--consist_lambda", type=float, default=1.0)
+    parser.add_argument("--weight_semantics", type=str, default="ref",
+                        choices=("ref", "sample"))
     return parser.parse_args(argv)
 
 

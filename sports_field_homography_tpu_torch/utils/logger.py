@@ -24,6 +24,8 @@ def get_logger(log_path: str | None = None,
 
     logger = logging.getLogger(log_name)
     logger.setLevel(logging.INFO)
+    # a named logger prints through its own handler only, not the root's too
+    logger.propagate = log_name is None
     # avoid duplicate handlers when the same logger is requested repeatedly
     # (the reference re-adds handlers each call and double-prints)
     for h in list(logger.handlers):

@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain versions on a GPU, at edge shapes
-the predict path does not reach (ragged tiles, shallow or odd channel
-counts, odd sizes, degenerate homographies, strided inputs, side streams).
+the main paths do not reach (ragged tiles, shallow or odd channel counts,
+1x1 images, odd sizes, degenerate homographies, strided inputs, side
+streams), and the bitwise repeatability of the training kernels'
+reductions (f32 reductions against the plain version in float64, rel-L2
+1e-5; bf16 against the plain version on the same inputs, 1e-3).
 
 Marked ``cuda``: each test skips without a CUDA device.  On a GPU box
 (which need not have JAX)::
@@ -117,3 +120,183 @@ def test_launch_counters_and_device_mismatch(dev):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         conv3x3(x.half(), torch.rand(3, 3, 8, 8, device=dev).half())
     assert conv3x3.launches == before + 1
+
+
+# ---- training kernels: K2 stats, K5, K7-bwd, K3-bwd -------------------------
+
+def _rel_l2(got, ref):
+    got, ref = got.double(), ref.double()
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def _repeat(fn):
+    """Two runs of a reduction kernel on the same inputs are bitwise equal."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    return a
+
+
+_RED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout,prologue", [
+    (1, 7, 9, 3, 5, False),        # Cin = 3, ragged M and Cout
+    (2, 33, 65, 48, 96, True),     # M, Cout not multiples of the 64x64 tile
+    (3, 1, 1, 16, 64, True),       # 1x1 images
+    (2, 45, 80, 64, 130, False),   # the 45x80 level, Cout over two tiles
+])
+def test_conv3x3_stats_edges(dev, dtype, n, h, w, cin, cout, prologue):
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = _rand(gen, (n, h, w, cin), dev).to(dtype)
+    wt = _rand(gen, (3, 3, cin, cout), dev, 1.0 / (3 * cin ** 0.5))
+    b = _rand(gen, (cout,), dev, 0.1)
+    pro = ((_rand(gen, (cin,), dev, 0.1), torch.rand(cin, generator=gen, device=dev) + 0.5,
+            _rand(gen, (cin,), dev, 0.1)) if prologue else None)
+    y, s = _repeat(lambda: conv3x3(x, wt, b, pro, stats=True))
+    if dtype == torch.float32:      # reductions against float64
+        y_ref, s_ref = conv3x3_plain(x.double(), wt.double(), b.double(),
+                                     None if pro is None else tuple(t.double() for t in pro),
+                                     stats=True)
+    else:                           # the plain version's f32 sums of the bf16 inputs
+        y_ref, s_ref = conv3x3_plain(x, wt, b, pro, stats=True)
+    assert y.dtype == dtype and s.shape == (2, cout)
+    _close(y, y_ref, dtype)
+    assert _rel_l2(s, s_ref) <= _RED_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout,prologue", [
+    (1, 7, 9, 3, 5, False),
+    (2, 33, 65, 48, 96, True),
+    (3, 1, 1, 16, 64, True),
+    (1, 45, 80, 200, 70, False),
+])
+def test_wgrad3x3_edges(dev, dtype, n, h, w, cin, cout, prologue):
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3, wgrad3x3_plain
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = _rand(gen, (n, h, w, cin), dev).to(dtype)
+    dy = _rand(gen, (n, h, w, cout), dev).to(dtype)
+    pro = ((_rand(gen, (cin,), dev, 0.1), torch.rand(cin, generator=gen, device=dev) + 0.5,
+            _rand(gen, (cin,), dev, 0.1)) if prologue else None)
+    dw, db = _repeat(lambda: wgrad3x3(x, dy, pro))
+    if dtype == torch.float32:
+        dw_ref, db_ref = wgrad3x3_plain(x.double(), dy.double(),
+                                        None if pro is None else tuple(t.double() for t in pro))
+    else:
+        dw_ref, db_ref = wgrad3x3_plain(x, dy, pro)
+    assert dw.shape == (3, 3, cin, cout) and dw.dtype == torch.float32
+    assert _rel_l2(dw, dw_ref) <= _RED_TOL[dtype]
+    assert _rel_l2(db, db_ref) <= _RED_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 5), (2, 7, 9, 33), (3, 45, 80, 96)])
+def test_bn_relu_bwd_edges(dev, dtype, shape):
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd, bn_relu_bwd_plain
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    c = shape[-1]
+    y = (_rand(gen, shape, dev, 2.0) + 0.3).to(dtype)
+    g = _rand(gen, shape, dev).to(dtype)
+    yf = y.float()
+    mean = yf.mean(dim=(0, 1, 2))
+    rstd = torch.rsqrt((yf * yf).mean(dim=(0, 1, 2)) - mean * mean + 1e-5)
+    vecs = (mean, rstd, torch.rand(c, generator=gen, device=dev) + 0.5,
+            _rand(gen, (c,), dev, 0.3))
+    dx, dgam, dbet = _repeat(lambda: bn_relu_bwd(y, g, *vecs))
+    dx_ref, _, _ = bn_relu_bwd_plain(y, g, *vecs)
+    ref64 = bn_relu_bwd_plain(y.double(), g.double(), *(v.double() for v in vecs))
+    _close(dx, dx_ref, dtype)
+    assert _rel_l2(dgam, ref64[1]) <= 1e-5 and _rel_l2(dbet, ref64[2]) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout", [(1, 5, 7, 24, 10), (2, 22, 40, 128, 64),
+                                            (1, 1, 1, 8, 3), (2, 45, 80, 64, 32)])
+def test_deconv_backward_edges(dev, dtype, n, h, w, cin, cout):
+    from sports_field_homography_tpu_torch.ops.deconv import (deconv2x2_backward,
+                                                              deconv2x2_backward_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = _rand(gen, (n, h, w, cin), dev).to(dtype)
+    dy = _rand(gen, (n, 2 * h, 2 * w, cout), dev).to(dtype)
+    wt = _rand(gen, (cin, 2, 2, cout), dev, cin ** -0.5).to(dtype)
+    dx, dw, db = _repeat(lambda: deconv2x2_backward(x, dy, wt))
+    dx_ref, _, _ = deconv2x2_backward_plain(x, dy, wt)
+    if dtype == torch.float32:
+        _, dw_ref, db_ref = deconv2x2_backward_plain(x.double(), dy.double(), wt.double())
+    else:
+        _, dw_ref, db_ref = deconv2x2_backward_plain(x, dy, wt)
+    assert dx.dtype == dtype and dw.shape == (cin, 2, 2, cout)
+    _close(dx, dx_ref, dtype)
+    assert _rel_l2(dw, dw_ref) <= _RED_TOL[dtype]
+    assert _rel_l2(db, db_ref) <= _RED_TOL[dtype]
+
+
+def test_training_kernels_strided_inputs_and_side_stream(dev):
+    """Non-contiguous inputs (an NCHW tensor's NHWC view, a sliced
+    cotangent) are made contiguous; every launch goes on the current
+    stream, so work queued on a side stream is ordered with it."""
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd, bn_relu_bwd_plain
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+    from sports_field_homography_tpu_torch.ops.deconv import (deconv2x2_backward,
+                                                              deconv2x2_backward_plain)
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3, wgrad3x3_plain
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = _rand(gen, (2, 16, 9, 11), dev).permute(0, 2, 3, 1)          # (2, 9, 11, 16)
+    dy = _rand(gen, (2, 9, 13, 8), dev)[:, :, 1:12]                  # (2, 9, 11, 8)
+    wt = _rand(gen, (3, 3, 16, 8), dev, 0.1)
+    b = _rand(gen, (8,), dev)
+    vecs = (_rand(gen, (8,), dev, 0.1), torch.rand(8, generator=gen, device=dev) + 0.5,
+            torch.rand(8, generator=gen, device=dev) + 0.5, _rand(gen, (8,), dev, 0.1))
+    wd = _rand(gen, (16, 2, 2, 4), dev, 0.25)
+    gd = _rand(gen, (2, 20, 22, 4), dev)[:, :18]                     # (2, 18, 22, 4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y, s = conv3x3(x, wt, b, stats=True)
+        dw, db = wgrad3x3(x, dy)
+        dxb = bn_relu_bwd(y, dy, *vecs)
+        dxd = deconv2x2_backward(x, gd, wd)
+    torch.cuda.current_stream().wait_stream(side)
+    xc, dyc = x.contiguous(), dy.contiguous()
+    y_ref, s_ref = conv3x3_plain(xc, wt, b, stats=True)
+    _close(y, y_ref, torch.float32)
+    assert _rel_l2(s, s_ref) <= 1e-5
+    assert _rel_l2(dw, wgrad3x3_plain(xc, dyc)[0]) <= 1e-5
+    _close(dxb[0], bn_relu_bwd_plain(y_ref, dyc, *vecs)[0], torch.float32)
+    for got, ref in zip(dxd, deconv2x2_backward_plain(xc, gd.contiguous(), wd)):
+        _close(got, ref, torch.float32)
+
+
+def test_training_kernel_counters_and_refusals(dev):
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2_backward
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3
+
+    x = torch.rand(1, 4, 4, 8, device=dev)
+    before = (conv3x3.launches, conv3x3.stats_launches, wgrad3x3.launches,
+              bn_relu_bwd.launches, deconv2x2_backward.launches)
+    conv3x3(x, torch.rand(3, 3, 8, 8, device=dev), stats=True)
+    wgrad3x3(x, x)
+    v = torch.ones(8, device=dev)
+    bn_relu_bwd(x, x, v, v, v, v)
+    deconv2x2_backward(x, torch.rand(1, 8, 8, 2, device=dev), torch.rand(8, 2, 2, 2, device=dev))
+    after = (conv3x3.launches, conv3x3.stats_launches, wgrad3x3.launches,
+             bn_relu_bwd.launches, deconv2x2_backward.launches)
+    assert all(a == b + 1 for a, b in zip(after, before))
+    with pytest.raises(TypeError, match="dtype"):
+        wgrad3x3(x, x.bfloat16())
+    with pytest.raises(ValueError, match="different devices"):
+        bn_relu_bwd(x, x, v.cpu(), v, v, v)
+    with pytest.raises(ValueError, match="dy must be"):
+        deconv2x2_backward(x, torch.rand(1, 7, 8, 2, device=dev), torch.rand(8, 2, 2, 2, device=dev))
