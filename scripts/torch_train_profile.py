@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Time, and optionally profile, flagship train steps of the PyTorch port
-(``sports_field_homography_tpu_torch``) on one NVIDIA GPU.
+"""Time, and optionally profile, flagship train steps (or predict
+batches) of the PyTorch port (``sports_field_homography_tpu_torch``) on one
+NVIDIA GPU.
 
-    python3 scripts/torch_train_profile.py [--batch 8] [--profile]
+    python3 scripts/torch_train_profile.py [--batch 8] [--profile] [--unet_bilinear] [--predict]
 
-The flagship (UNet deconv 64..1024 + ResNet34 on img+mask, 4 classes,
-640x360, bf16) with seeded random weights takes train steps on a fixed
-batch of synthetic court renders (``chip_smoke.flagship_train_step``).
+The flagship (UNet deconv 64..1024, or with ``--unet_bilinear`` the
+bilinear UNet, + ResNet34 on img+mask, 4 classes, 640x360, bf16) with
+seeded random weights takes train steps on a fixed batch of synthetic
+court renders (``chip_smoke.flagship_train_step``), or with ``--predict``
+runs the predict CLI's device path, BN folded, theta + consistency, on a
+batch of seeded frames (``chip_smoke.flagship_predict_step``).
 Prints the card's name and power limit, then ms/step and img/s (CUDA
 events, median of 5 steps after 2 warm-up).  With ``--profile`` one more
 step runs under ``torch.profiler``: device time by kernel (top 25), the
@@ -23,14 +27,17 @@ _GROUPS = [
     ("K2 conv3x3 (fwd, stats, dgrad)", ("conv3x3_kernel",)),
     ("K5 wgrad3x3", ("wgrad3x3_kernel",)),
     ("K7-bwd bn_relu_bwd", ("bn_relu_bwd",)),
+    ("K7-fwd bn_relu stats + norm", ("bn_relu_stats", "bn_relu_norm")),
     ("K3 deconv2x2 fwd", ("deconv2x2_kernel",)),
     ("K3-bwd deconv2x2 dgrad + wgrad", ("deconv2x2_dgrad", "deconv2x2_wgrad")),
     ("column sums (sum_rows)", ("sum_rows_kernel",)),
+    # before cuDNN's group: their kernel names contain "nhwc"
+    ("max-pool", ("max_pool",)),
+    ("bilinear up-sampling", ("upsample",)),
     ("cuDNN / cuBLAS (stem, ResNet, 1x1 heads)", ("cudnn", "xmma", "gemm", "conv",
                                                   "cutlass", "nchw", "nhwc", "wgrad", "dgrad")),
-    ("optimizer (RMSprop, clip)", ("multi_tensor", "foreach", "clamp")),
+    ("optimizer (RMSprop) and clamps", ("multi_tensor", "foreach", "clamp")),
     ("reductions", ("reduce",)),
-    ("max-pool", ("max_pool",)),
     ("gather / scatter / index", ("index", "gather", "scatter")),
     ("concat / copy / pad", ("cat", "copy", "pad", "Memcpy", "Memset")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "Activation")),
@@ -49,6 +56,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--unet_bilinear", action="store_true")
+    ap.add_argument("--predict", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import subprocess
@@ -64,9 +73,12 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda:0")
-    step = chip_smoke.flagship_train_step(dev, args.batch)
+    make = chip_smoke.flagship_predict_step if args.predict else chip_smoke.flagship_train_step
+    step = make(dev, args.batch, args.unet_bilinear)
     ms = chip_smoke.cuda_ms(step, warmup=2, runs=5)
-    print(f"flagship 640x360 bf16 batch {args.batch}: {ms:.1f} ms/step, "
+    variant = ("bilinear" if args.unet_bilinear else "flagship") + (
+        " predict" if args.predict else " train")
+    print(f"{variant} 640x360 bf16 batch {args.batch}: {ms:.1f} ms/step, "
           f"{args.batch * 1000.0 / ms:.1f} img/s (CUDA events, median of 5) "
           f"[{card}]; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
           flush=True)

@@ -38,12 +38,13 @@ class ModelBundle:
 
 
 def build_model(args, load: Optional[str] = None, seed: int = 0,
-                fold_bn: bool = False) -> ModelBundle:
+                fold_bn: bool = False, warp_with_nearest: bool = False) -> ModelBundle:
     """Construct the Reconstructor and court constants from parsed args.
 
     ``load``: a reference-keyed ``.pth`` state_dict (the JAX package's
     ``save_torch_checkpoint`` writes these), loaded with ``strict=True``;
     None initialises from ``seed`` with a ``torch.Generator``.
+    ``warp_with_nearest``: the forward warps with K1 (the test CLI).
     """
     device = torch.device(getattr(args, "device", "cuda"))
     dtype = dtype_from_str(getattr(args, "compute_dtype", "bfloat16"))
@@ -57,7 +58,7 @@ def build_model(args, load: Optional[str] = None, seed: int = 0,
         unet_size=tuple(args.unet_size), unet_uv=getattr(args, "unet_uv", False),
         use_resnet=args.use_resnet, resnet_name=args.resnet_name,
         resnet_input=args.resnet_input, use_warper=args.use_warper,
-        warp_size=tuple(args.warp_size))
+        warp_size=tuple(args.warp_size), warp_with_nearest=warp_with_nearest)
     model = Reconstructor(cfg, dtype=dtype)
     if load is None:
         init_weights(model, torch.Generator().manual_seed(seed))

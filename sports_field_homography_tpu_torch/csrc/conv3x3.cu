@@ -4,8 +4,16 @@
 // Replaces: sports_field_homography_tpu/ops/conv3x3_pallas.py::conv3x3
 // (forward with bias, prologue and the training-only stats epilogue, as
 // composed by ops/double_conv.py::double_conv_eval and double_conv_train;
-// dgrad is this kernel over the cotangent with dgrad_weights).  The second
-// input (x2/wmat2, the TPU's packed level-1 domain) is not carried over.
+// dgrad is this kernel over the cotangent with dgrad_weights), including
+// its two-input form (x2/wmat2, conv3x3_pallas.py:157-158, :221-225): the
+// concat-free decoder conv conv(cat(a, b)) = conv(a, Wa) + conv(b, Wb).
+//
+// Two-input form: after the K loop over x's 9*Cin rows the block runs a
+// second K loop over x2's 9*Cin2 rows into the same f32 accumulator, with
+// the same staging (x2's patch is gathered as it is staged, so the concat
+// never exists in memory) and the same shared-memory tiles; the prologue
+// applies to x only, the bias is added once and the stats are those of the
+// sum.  The TPU's width-pair packing of that form is not carried over.
 //
 // What bounds it on an H100: arithmetic.  A UNet level-1 conv (64->64 at
 // 360x640, batch 8) is 2*M*9*Cin*Cout = 136 GFLOP over ~0.5 GB of bf16
@@ -36,44 +44,18 @@
 namespace sfh {
 namespace {
 
+// The K loop of one input: acc += patch(x) . wmat over the 9*Cin rows of
+// wmat, the prologue applied to x's elements as they are staged.
 template <typename T, bool kPrologue>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
-               const float* __restrict__ bias, const float* __restrict__ mean,
-               const float* __restrict__ inv, const float* __restrict__ beta,
-               T* __restrict__ y, float* __restrict__ partial, int N, int H,
-               int W, int Cin, int Cout) {
-  __shared__ __align__(16) TileSmem s;
-  const int M = N * H * W;
+__device__ __forceinline__ void accumulate_input(
+    TileSmem& s, float (&acc)[4][4], const T* __restrict__ x,
+    const T* __restrict__ wmat, const float* __restrict__ mean,
+    const float* __restrict__ inv, const float* __restrict__ beta, int H,
+    int W, int Cin, int Cout, int n0, const int (&rn)[4], const int (&rh)[4],
+    const int (&rw)[4], const bool (&rv)[4], int tx, int ty) {
   const int K = 9 * Cin;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  // A-tile staging: this thread loads reduction column ak for the four
-  // pixel rows am + 16*i.  Their (n, oh, ow) are fixed for the whole loop.
   const int ak = threadIdx.x % kBK;
   const int am = threadIdx.x / kBK;
-  int rn[4], rh[4], rw[4];
-  bool rv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + am + 16 * i;
-    rv[i] = m < M;
-    const int mm = rv[i] ? m : 0;
-    rw[i] = mm % W;
-    const int t = mm / W;
-    rh[i] = t % H;
-    rn[i] = t / H;
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
   for (int k0 = 0; k0 < K; k0 += kBK) {
     const int k = k0 + ak;
     const bool kv = k < K;
@@ -102,6 +84,51 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
     __syncthreads();
     mma_tile(s, acc, tx, ty);
     __syncthreads();
+  }
+}
+
+template <typename T, bool kPrologue>
+__global__ void __launch_bounds__(kThreads)
+conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
+               const T* __restrict__ x2, const T* __restrict__ wmat2,
+               const float* __restrict__ bias, const float* __restrict__ mean,
+               const float* __restrict__ inv, const float* __restrict__ beta,
+               T* __restrict__ y, float* __restrict__ partial, int N, int H,
+               int W, int Cin, int Cin2, int Cout) {
+  __shared__ __align__(16) TileSmem s;
+  const int M = N * H * W;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  // A-tile staging: this thread loads one reduction column for the four
+  // pixel rows am + 16*i.  Their (n, oh, ow) are fixed for both K loops.
+  const int am = threadIdx.x / kBK;
+  int rn[4], rh[4], rw[4];
+  bool rv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + am + 16 * i;
+    rv[i] = m < M;
+    const int mm = rv[i] ? m : 0;
+    rw[i] = mm % W;
+    const int t = mm / W;
+    rh[i] = t % H;
+    rn[i] = t / H;
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  accumulate_input<T, kPrologue>(s, acc, x, wmat, mean, inv, beta, H, W, Cin,
+                                 Cout, n0, rn, rh, rw, rv, tx, ty);
+  if (x2 != nullptr) {   // uniform: the concat-free second input, no prologue
+    accumulate_input<T, false>(s, acc, x2, wmat2, nullptr, nullptr, nullptr, H,
+                               W, Cin2, Cout, n0, rn, rh, rw, rv, tx, ty);
   }
 
   float bv[4];
@@ -151,42 +178,48 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
 }
 
 template <typename T>
-void launch(const void* x, const void* wmat, const float* bias,
-            const float* mean, const float* inv, const float* beta, void* y,
-            float* partial, int n, int h, int w, int cin, int cout,
+void launch(const void* x, const void* wmat, const void* x2,
+            const void* wmat2, const float* bias, const float* mean,
+            const float* inv, const float* beta, void* y, float* partial,
+            int n, int h, int w, int cin, int cin2, int cout,
             cudaStream_t stream) {
   const int64_t m = (int64_t)n * h * w;
   dim3 grid((unsigned)((m + kBM - 1) / kBM), (unsigned)((cout + kBN - 1) / kBN));
   if (mean != nullptr) {
     conv3x3_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(wmat), bias, mean, inv,
-        beta, static_cast<T*>(y), partial, n, h, w, cin, cout);
+        static_cast<const T*>(x), static_cast<const T*>(wmat),
+        static_cast<const T*>(x2), static_cast<const T*>(wmat2), bias, mean,
+        inv, beta, static_cast<T*>(y), partial, n, h, w, cin, cin2, cout);
   } else {
     conv3x3_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(wmat), bias, nullptr,
-        nullptr, nullptr, static_cast<T*>(y), partial, n, h, w, cin, cout);
+        static_cast<const T*>(x), static_cast<const T*>(wmat),
+        static_cast<const T*>(x2), static_cast<const T*>(wmat2), bias, nullptr,
+        nullptr, nullptr, static_cast<T*>(y), partial, n, h, w, cin, cin2, cout);
   }
 }
 
 }  // namespace
 }  // namespace sfh
 
-// dtype: 0 = float32, 1 = bfloat16.  bias / mean / inv / beta are f32 and
-// may be null (mean, inv and beta together).  partial, when not null, is a
+// dtype: 0 = float32, 1 = bfloat16.  x2 / wmat2 (the second input, with
+// cin2 channels, and its (9*cin2, cout) weights) may be null together.
+// bias / mean / inv / beta are f32 and may be null (mean, inv and beta
+// together; the prologue applies to x only).  partial, when not null, is a
 // (ceil(n*h*w / 64), 2*cout) f32 scratch matrix that receives each block's
 // [sum(y) | sum(y*y)] rows.  Returns cudaGetLastError().
-extern "C" int sfh_conv3x3(const void* x, const void* wmat, const float* bias,
+extern "C" int sfh_conv3x3(const void* x, const void* wmat, const void* x2,
+                           const void* wmat2, const float* bias,
                            const float* mean, const float* inv,
                            const float* beta, void* y, float* partial, int n,
-                           int h, int w, int cin, int cout, int dtype,
-                           void* stream) {
+                           int h, int w, int cin, int cin2, int cout,
+                           int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    sfh::launch<float>(x, wmat, bias, mean, inv, beta, y, partial, n, h, w,
-                       cin, cout, st);
+    sfh::launch<float>(x, wmat, x2, wmat2, bias, mean, inv, beta, y, partial,
+                       n, h, w, cin, cin2, cout, st);
   } else if (dtype == 1) {
-    sfh::launch<__nv_bfloat16>(x, wmat, bias, mean, inv, beta, y, partial, n,
-                               h, w, cin, cout, st);
+    sfh::launch<__nv_bfloat16>(x, wmat, x2, wmat2, bias, mean, inv, beta, y,
+                               partial, n, h, w, cin, cin2, cout, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -10,7 +10,9 @@ PyTorch runs eagerly, so nothing is pruned after the fact: ``predict``
 computes only what it is asked for.  In particular the consistency labels
 come from the warp evaluated at the logits grid (``sample_hw``): the
 full-resolution warp belongs to the ``warp_mask`` output, which is not
-ported yet.
+ported yet.  ``forward`` warps bilinearly (training), or, with
+``warp_with_nearest`` (the checkpoint test CLI), with K1 on the full
+``warp_size`` grid, as the JAX ``warp`` does.
 """
 from __future__ import annotations
 
@@ -68,14 +70,11 @@ class ReconstructorConfig:
     resnet_input: str = "img+mask"
     use_warper: bool = True
     warp_size: Tuple[int, int] = (640, 360)
+    warp_with_nearest: bool = False
 
     def __post_init__(self):
         if not (self.use_unet or self.use_resnet):
             raise ValueError("need the UNet, the ResNet or both")
-        if self.unet_bilinear:
-            raise NotImplementedError(
-                "the bilinear UNet is not ported yet (ROADMAP.md, queue 1 "
-                "step 3)")
         if self.use_resnet and self.resnet_name not in resnet_models:
             raise NotImplementedError(
                 f"{self.resnet_name}: only {sorted(resnet_models)} are "
@@ -107,8 +106,8 @@ class Reconstructor(nn.Module):
         self.config = config
         self.dtype = dtype
         if config.use_unet:
-            for name, layer in unet_layers(config.mask_classes,
-                                           config.unet_uv).items():
+            for name, layer in unet_layers(config.mask_classes, config.unet_uv,
+                                           config.unet_bilinear).items():
                 self.add_module(name, layer)
         if config.use_resnet:
             block, layers = resnet_models[config.resnet_name]
@@ -147,7 +146,7 @@ class Reconstructor(nn.Module):
                             value_step=value_step)
 
     def forward(self, x: torch.Tensor, court_template: torch.Tensor,
-                court_poi: torch.Tensor) -> dict:
+                court_poi: torch.Tensor, court_labels=None) -> dict:
         """Training / validation forward (the JAX ``Reconstructor.__call__``):
         BatchNorm uses batch statistics and updates its running stats when
         the module is in training mode.
@@ -156,11 +155,14 @@ class Reconstructor(nn.Module):
           x: (B, H, W, 3) float32 frames in [0, 1].
           court_template: (Ht, Wt) float32 court labels / mask_classes.
           court_poi: (N, 2) court points of interest in [-1, 1].
+          court_labels: (uint8 (Ht, Wt) labels, value step) of the same
+            template; the nearest warp (``warp_with_nearest``) reads them.
         Returns:
           dict with ``logits`` (NHWC, compute dtype), ``theta`` (B, 1, 3, 3)
           f32, ``poi`` (B, N, 2) in [0, 1] and ``warp_mask`` (B, h, w) f32,
-          the bilinear warp of the template at ``warp_size`` (the
-          reference trains with bilinear; nearest is for inference).
+          the warp of the template at ``warp_size``: bilinear (the
+          reference trains with bilinear), or nearest (K1) with
+          ``warp_with_nearest``.
         """
         cfg = self.config
         ret = {}
@@ -174,7 +176,11 @@ class Reconstructor(nn.Module):
             theta = self.resnet_reg(self._stn_input(x, logits, uv))
             ret["theta"] = theta
             ret["poi"] = transform_poi(theta, court_poi)
-            if cfg.use_warper:
+            if cfg.use_warper and cfg.warp_with_nearest:
+                if court_labels is None:
+                    raise ValueError("warp_with_nearest needs court_labels")
+                ret["warp_mask"] = self.warp(theta, *court_labels)
+            elif cfg.use_warper:
                 w, h = cfg.warp_size
                 ret["warp_mask"] = warp_bilinear(court_template, theta, (h, w))
         return ret

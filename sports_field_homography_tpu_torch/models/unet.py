@@ -1,10 +1,16 @@
-"""UNet court segmentation, deconv variant (port of ``models/unet.py``).
+"""UNet court segmentation, deconv or bilinear variant (port of
+``models/unet.py``).
 
 Activations are NHWC.  Every 3x3 conv except the 3-channel stem runs K2
-(``ops/double_conv.py``), every up-conv K3 (``ops/deconv.py``).  In
-training mode each DoubleConv runs the ``double_conv_train`` autograd
-Function (K2 with stats, K5, K7-bwd) and updates its BN running stats;
-the up-convs' backward is K3-bwd.  Parameter
+(``ops/double_conv.py``) and every BN2+ReLU K7-fwd's norm; a decoder
+DoubleConv takes the skip and the up-sampled tensor as K2's two inputs,
+with no concat.  The deconv variant up-samples with K3 (``ops/deconv.py``),
+the bilinear one with ``ops/resize.upsample2x_bilinear`` and halves the
+deepest widths (down4 512, decoder outputs 256/128/64/64 with mids
+512/256/128/64).  In training mode each DoubleConv runs the
+``double_conv_train`` autograd Function (K2 with stats, K5, K7-fwd,
+K7-bwd) and updates its BN running stats; the up-convs' backward is
+K3-bwd.  Parameter
 names follow the reference (``inc.double_conv.0.weight``,
 ``down1.maxpool_conv.1.double_conv...``, ``up1.up.weight``,
 ``outc.conv.weight``).  The reference inlines these layers into its
@@ -13,7 +19,7 @@ Reconstructor, so ``unet_layers`` builds them for it to hold and
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +27,7 @@ from torch import nn
 
 from ..ops.deconv import deconv2x2
 from ..ops.double_conv import double_conv_eval, double_conv_train
+from ..ops.resize import upsample2x_bilinear
 from .layers import BN_EPS, max_pool, update_running_stats
 
 __all__ = ["DoubleConv", "Down", "Up", "OutConv", "unet_layers", "unet_forward"]
@@ -31,15 +38,18 @@ def _hwio(w: torch.Tensor) -> torch.Tensor:
 
 
 class DoubleConv(nn.Module):
-    """(conv3x3 pad1 -> BN -> ReLU) x 2 (reference ``unet/unet_parts.py``)."""
+    """(conv3x3 pad1 -> BN -> ReLU) x 2 (reference ``unet/unet_parts.py``);
+    ``forward(x, x2)`` runs conv1 on the channel concat [x, x2]."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 mid_channels: Optional[int] = None):
         super().__init__()
+        mid = mid_channels or out_channels
         self.double_conv = nn.Sequential(
-            nn.Conv2d(in_channels, out_channels, 3, padding=1),
-            nn.BatchNorm2d(out_channels),
+            nn.Conv2d(in_channels, mid, 3, padding=1),
+            nn.BatchNorm2d(mid),
             nn.ReLU(inplace=True),
-            nn.Conv2d(out_channels, out_channels, 3, padding=1),
+            nn.Conv2d(mid, out_channels, 3, padding=1),
             nn.BatchNorm2d(out_channels),
             nn.ReLU(inplace=True),
         )
@@ -48,12 +58,12 @@ class DoubleConv(nn.Module):
         s = self.double_conv
         return [(s[0], s[1]), (s[3], s[4])]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None) -> torch.Tensor:
         c1, bn1, _, c2, bn2, _ = self.double_conv
         if self.training:
             out, m1, v1, m2, v2 = double_conv_train(
                 x, _hwio(c1.weight), c1.bias, bn1.weight, bn1.bias,
-                _hwio(c2.weight), c2.bias, bn2.weight, bn2.bias, BN_EPS)
+                _hwio(c2.weight), c2.bias, bn2.weight, bn2.bias, BN_EPS, x2=x2)
             n = x.shape[0] * x.shape[1] * x.shape[2]
             update_running_stats(bn1, m1, v1, n)
             update_running_stats(bn2, m2, v2, n)
@@ -62,7 +72,7 @@ class DoubleConv(nn.Module):
             x, _hwio(c1.weight), c1.bias, bn1.weight, bn1.bias,
             bn1.running_mean, bn1.running_var,
             _hwio(c2.weight), c2.bias, bn2.weight, bn2.bias,
-            bn2.running_mean, bn2.running_var, BN_EPS)
+            bn2.running_mean, bn2.running_var, BN_EPS, x2=x2)
 
 
 class Down(nn.Module):
@@ -78,22 +88,33 @@ class Down(nn.Module):
 
 
 class Up(nn.Module):
-    """k2s2 up-conv (K3), pad to the skip's size, concat, DoubleConv."""
+    """Up-sample (k2s2 up-conv on K3, or bilinear 2x), pad to the skip's
+    size, DoubleConv over [skip, up] (K2's two-input form: no concat).
 
-    def __init__(self, in_channels: int, out_channels: int):
+    ``in_channels`` is the concat's width, as in the reference; the
+    bilinear variant has no ``up`` parameters and a DoubleConv of mid
+    width ``in_channels // 2``."""
+
+    def __init__(self, in_channels: int, out_channels: int, bilinear: bool = False):
         super().__init__()
-        self.up = nn.ConvTranspose2d(in_channels, in_channels // 2, 2, stride=2)
-        self.conv = DoubleConv(in_channels, out_channels)
+        self.bilinear = bilinear
+        if bilinear:
+            self.conv = DoubleConv(in_channels, out_channels, in_channels // 2)
+        else:
+            self.up = nn.ConvTranspose2d(in_channels, in_channels // 2, 2, stride=2)
+            self.conv = DoubleConv(in_channels, out_channels)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        x1 = deconv2x2(x1, self.up.weight.permute(0, 2, 3, 1), self.up.bias)
+        if self.bilinear:
+            x1 = upsample2x_bilinear(x1)
+        else:
+            x1 = deconv2x2(x1, self.up.weight.permute(0, 2, 3, 1), self.up.bias)
         # align to the skip: F.pad([dx//2, dx-dx//2, dy//2, dy-dy//2])
         dy = x2.shape[1] - x1.shape[1]
         dx = x2.shape[2] - x1.shape[2]
         if dy or dx:
             x1 = F.pad(x1, (0, 0, dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
-        # the two-input K2 (concat-free) is later work
-        return self.conv(torch.cat([x2, x1], dim=-1))
+        return self.conv(x2, x1)
 
 
 class OutConv(nn.Module):
@@ -109,14 +130,17 @@ class OutConv(nn.Module):
                         self.conv.bias.to(dt))
 
 
-def unet_layers(mask_classes: int = 4, uv: bool = False) -> Dict[str, nn.Module]:
-    """The UNet's layers by reference name: channels 64..1024, 4 skips."""
+def unet_layers(mask_classes: int = 4, uv: bool = False,
+                bilinear: bool = False) -> Dict[str, nn.Module]:
+    """The UNet's layers by reference name: channels 64..1024 (the deepest
+    halved when bilinear), 4 skips."""
+    f = 2 if bilinear else 1
     layers = {
         "inc": DoubleConv(3, 64),
         "down1": Down(64, 128), "down2": Down(128, 256),
-        "down3": Down(256, 512), "down4": Down(512, 1024),
-        "up1": Up(1024, 512), "up2": Up(512, 256),
-        "up3": Up(256, 128), "up4": Up(128, 64),
+        "down3": Down(256, 512), "down4": Down(512, 1024 // f),
+        "up1": Up(1024, 512 // f, bilinear), "up2": Up(512, 256 // f, bilinear),
+        "up3": Up(256, 128 // f, bilinear), "up4": Up(128, 64, bilinear),
         "outc": OutConv(64, mask_classes),
     }
     if uv:

@@ -39,12 +39,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sfh_warp_nearest": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _P, _P],
-    "sfh_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sfh_conv3x3": [_P] * 10 + [_I] * 7 + [_P],
     "sfh_deconv2x2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sfh_deconv2x2_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sfh_wgrad3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sfh_bn_relu_bwd_reduce": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sfh_bn_relu_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "sfh_bn_relu_stats": [_P, _P, _I, _I, _I, _I, _P],
+    "sfh_bn_relu_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "sfh_sum_rows": [_P, _P, _I, _I, _I, _I, _P],
 }
 

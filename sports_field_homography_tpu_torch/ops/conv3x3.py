@@ -17,6 +17,13 @@ rounds, as the kernel does.
 
 A dgrad needs no kernel of its own: it is this conv, without bias, over
 the cotangent with ``dgrad_weights`` (rot180, channel-transposed).
+
+Two-input form (``x2``/``w2``, the concat-free decoder conv of
+``conv3x3_pallas.conv3x3``'s ``x2``/``wmat2``): ``conv(cat(x, x2), cat(w,
+w2))`` as ``conv(x, w) + conv(x2, w2)`` in one kernel pass, the K loop
+running over x's 9*Cin rows and then over x2's 9*Cin2 rows into the same
+accumulator.  The prologue applies to x only, the bias is added once and
+the stats are those of the sum.  Its plain version concatenates.
 """
 from __future__ import annotations
 
@@ -57,13 +64,30 @@ def _check(x, w):
         raise ValueError(f"w must be (3, 3, {cin}, Cout), got {tuple(w.shape)}")
 
 
+def _check_second(x, w, x2, w2):
+    if (x2 is None) != (w2 is None):
+        raise ValueError("x2 and w2 come together")
+    if x2 is None:
+        return
+    _check(x2, w2)
+    if x2.shape[:3] != x.shape[:3] or w2.shape[-1] != w.shape[-1]:
+        raise ValueError(f"x2 {tuple(x2.shape)} / w2 {tuple(w2.shape)} must share N, H, "
+                         f"W with x {tuple(x.shape)} and Cout with w {tuple(w.shape)}")
+    if x2.dtype != x.dtype:
+        raise TypeError(f"x2 ({x2.dtype}) must have x's dtype ({x.dtype})")
+
+
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
                   prologue: Optional[Sequence[torch.Tensor]] = None,
-                  stats: bool = False):
+                  stats: bool = False, x2: Optional[torch.Tensor] = None,
+                  w2: Optional[torch.Tensor] = None):
     _check(x, w)
+    _check_second(x, w, x2, w2)
     if prologue is not None:
         x = apply_prologue(x, prologue)
+    if x2 is not None:
+        x, w = torch.cat([x, x2], dim=-1), torch.cat([w, w2.to(w.dtype)], dim=2)
     dt = x.dtype
     acc = _dispatch.acc_dtype(dt)
     if stats:
@@ -82,8 +106,9 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
 def conv3x3(x: torch.Tensor, w: torch.Tensor,
             bias: Optional[torch.Tensor] = None,
             prologue: Optional[Sequence[torch.Tensor]] = None,
-            stats: bool = False):
-    """y = conv3x3(prologue(x), w) + bias over NHWC.
+            stats: bool = False, x2: Optional[torch.Tensor] = None,
+            w2: Optional[torch.Tensor] = None):
+    """y = conv3x3(prologue(x), w) [+ conv3x3(x2, w2)] + bias over NHWC.
 
     Args:
       x: (N, H, W, Cin) float32 or bfloat16.
@@ -94,21 +119,29 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
         stays zero.
       stats: also return the (2, Cout) f32 sums [sum(y), sum(y*y)] over
         N*H*W, of the f32 result before its rounding to x's dtype.
+      x2, w2: optional second input (N, H, W, Cin2) in x's dtype and its
+        (3, 3, Cin2, Cout) weights, summed into the same output (the conv
+        of the channel concat [x, x2]); no prologue on x2.
     Returns:
       (N, H, W, Cout) in x's dtype, or (y, sums) with ``stats``.
     """
     extra = [bias] if bias is not None else []
     if prologue is not None:
         extra += list(prologue)
+    extra += [t for t in (x2, w2) if t is not None]
     if _dispatch.on_cpu(x, w, *extra):
-        return conv3x3_plain(x, w, bias, prologue, stats)
+        return conv3x3_plain(x, w, bias, prologue, stats, x2, w2)
     _check(x, w)
+    _check_second(x, w, x2, w2)
     code_dt = _dispatch.dtype_code(x.dtype)
     n, h, wd, cin = x.shape
     _dispatch.check_pixels(n, h, wd)
     cout = w.shape[-1]
     x = x.contiguous()
     wmat = w.to(x.dtype).contiguous()            # (9*Cin, Cout) row-major
+    cin2 = 0 if x2 is None else x2.shape[-1]
+    if x2 is not None:     # each input's slice of the weights packed on its own
+        x2, w2 = x2.contiguous(), w2.to(x.dtype).contiguous()
     b = bias.float().contiguous() if bias is not None else None
     pro = ([t.float().contiguous() for t in prologue]
            if prologue is not None else [None, None, None])
@@ -122,11 +155,13 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
         code = load_library().sfh_conv3x3(
-            x.data_ptr(), wmat.data_ptr(), ptr(b), ptr(pro[0]), ptr(pro[1]),
-            ptr(pro[2]), y.data_ptr(), ptr(part), n, h, wd, cin, cout, code_dt,
-            _dispatch.stream_handle(x.device))
+            x.data_ptr(), wmat.data_ptr(), ptr(x2), ptr(w2), ptr(b), ptr(pro[0]),
+            ptr(pro[1]), ptr(pro[2]), y.data_ptr(), ptr(part), n, h, wd, cin, cin2,
+            cout, code_dt, _dispatch.stream_handle(x.device))
     check(code, "conv3x3")
     conv3x3.launches += 1
+    if x2 is not None:
+        conv3x3.dual_launches += 1
     if not stats:
         return y
     conv3x3.stats_launches += 1
@@ -135,3 +170,4 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
 
 conv3x3.launches = 0
 conv3x3.stats_launches = 0    # the subset of launches with the stats epilogue
+conv3x3.dual_launches = 0     # the subset of launches with a second input

@@ -2,7 +2,9 @@
 ``make_eval_step`` and ``eval_reconstructor``).
 
 The model runs in eval mode (running BN statistics) with the same forward
-as training: bilinear warp, PoI projection.  Keys as in the JAX package:
+as training: PoI projection and the bilinear warp, or the nearest one for
+a model built with ``warp_with_nearest`` (the test CLI), which reads
+``court_labels``.  Keys as in the JAX package:
 val_seg_score, val_rec_score, val_reproj_score, val_reproj_px,
 val_consist_score (the UV head is not trained by this port yet).  The
 loaders of this port yield the true (ragged) tail batch, so every batch
@@ -32,18 +34,23 @@ def _per_sample(loss_map: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def eval_step(model, batch: Dict[str, torch.Tensor], court_template, court_poi,
-              target_size, weight_semantics: str = "ref") -> Dict[str, torch.Tensor]:
-    """Per-batch metrics (the JAX ``make_eval_step``'s ``_step`` with
-    per-sample weights)."""
-    preds = model(norm_img(batch["image"]), court_template, court_poi)
+              target_size, weight_semantics: str = "ref",
+              use_per_sample_weights: bool = True,
+              court_labels=None) -> Dict[str, torch.Tensor]:
+    """Per-batch metrics (the JAX ``make_eval_step``'s ``_step``): seg and
+    rec weighted per sample, or, without ``use_per_sample_weights`` (the
+    test CLI), plain means over the samples."""
+    preds = model(norm_img(batch["image"]), court_template, court_poi, court_labels)
     nc = model.config.mask_classes
     out: Dict[str, torch.Tensor] = {}
     logits, warp = preds.get("logits"), preds.get("warp_mask")
     gt_i = batch["mask"].long()
-    w = batch["weight"].reshape(-1).float()
 
     def seg_rec(loss_map):
         per = _per_sample(loss_map)
+        if not use_per_sample_weights:
+            return per.mean()
+        w = batch["weight"].reshape(-1).float()
         if weight_semantics == "ref":   # the reference's outer-product quirk
             return per.mean() * w.mean()
         return (per * w).mean()
@@ -67,7 +74,9 @@ def eval_step(model, batch: Dict[str, torch.Tensor], court_template, court_poi,
 
 def eval_reconstructor(model, batches: Iterable[Dict[str, torch.Tensor]],
                        court_template, court_poi, target_size,
-                       weight_semantics: str = "ref") -> Dict[str, float]:
+                       weight_semantics: str = "ref",
+                       use_per_sample_weights: bool = True,
+                       court_labels=None) -> Dict[str, float]:
     """Validation over device batches (the JAX ``eval_reconstructor``):
     seg/rec/consist are means over batches, reprojection means over
     samples.  The model's train/eval mode is restored afterwards."""
@@ -79,7 +88,8 @@ def eval_reconstructor(model, batches: Iterable[Dict[str, torch.Tensor]],
     try:
         for batch in batches:
             out = eval_step(model, batch, court_template, court_poi,
-                            target_size, weight_semantics)
+                            target_size, weight_semantics,
+                            use_per_sample_weights, court_labels)
             for k, v in out.items():
                 sums[k] += float(v)
             n_batches += 1

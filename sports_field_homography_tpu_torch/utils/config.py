@@ -1,5 +1,5 @@
 """Argparse + YAML-overlay configuration (port of ``utils/config.py``:
-the prediction and training arguments).
+the prediction, training and checkpoint-test arguments).
 
 Same flag names and defaults as the JAX package, and the same overlay:
 a ``conf.yaml`` beside the checkpoint replaces parsed values key by key
@@ -14,7 +14,7 @@ import json
 import os
 
 __all__ = ["parse_config", "get_prediction_args", "get_training_args",
-           "replace_args", "resolve_asset"]
+           "get_test_args", "replace_args", "resolve_asset"]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -127,9 +127,7 @@ def get_prediction_args(argv=None):
     return parser.parse_args(argv)
 
 
-def get_training_args(argv=None):
-    """Training arguments (the JAX package's ``get_training_args``; the
-    ones outside the ported slice are accepted and refused by the CLI)."""
+def _training_parser() -> argparse.ArgumentParser:
     parser = _base_parser()
     parser.add_argument("--viz", action="store_true", default=False)
     parser.add_argument("--resnet_pretrained", type=str, default=None)
@@ -168,6 +166,27 @@ def get_training_args(argv=None):
     parser.add_argument("--consist_lambda", type=float, default=1.0)
     parser.add_argument("--weight_semantics", type=str, default="ref",
                         choices=("ref", "sample"))
+    return parser
+
+
+def get_training_args(argv=None):
+    """Training arguments (the JAX package's ``get_training_args``; the
+    ones outside the ported slice are accepted and refused by the CLI)."""
+    return _training_parser().parse_args(argv)
+
+
+def get_test_args(argv=None):
+    """Checkpoint-sweep test arguments (the JAX package's
+    ``get_test_args``): the training arguments plus these."""
+    parser = _training_parser()
+    parser.description = "Test"
+    parser.add_argument("--test_epochs", dest="test_epochs", type=str, default=None,
+                        help="List of epochs to test, e.g. 1,2,5")
+    parser.add_argument("--metric_img_size", "-mis", dest="metric_img_size",
+                        default=(640, 360), help="Metric image size")
+    parser.add_argument("--fold_bn", type=int, default=1,
+                        help="Fold BatchNorm into conv weights at load "
+                             "(inference-only; 0 disables)")
     return parser.parse_args(argv)
 
 

@@ -300,3 +300,155 @@ def test_training_kernel_counters_and_refusals(dev):
         bn_relu_bwd(x, x, v.cpu(), v, v, v)
     with pytest.raises(ValueError, match="dy must be"):
         deconv2x2_backward(x, torch.rand(1, 7, 8, 2, device=dev), torch.rand(8, 2, 2, 2, device=dev))
+
+
+# ---- K7-fwd (BN+ReLU stats and norm), K2's two-input form -------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 7, 9, 64), (1, 33, 65, 96), (3, 5, 7, 1024),
+                                   (2, 3, 5, 5)])   # C = 5: the scalar (unvectorised) path
+def test_bn_relu_fwd_edges(dev, dtype, shape):
+    """Pixel counts that fill no block evenly; f32 norm equal to the plain
+    version bit for bit, bf16 within 2e-2; stats against float64 (f32) or
+    the plain version (bf16), repeated bitwise."""
+    from sports_field_homography_tpu_torch.ops.bn_relu import (
+        bn_relu_norm, bn_relu_norm_plain, bn_relu_stats, bn_relu_stats_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    c = shape[-1]
+    x = (_rand(gen, shape, dev, 2.0) + 0.4).to(dtype)
+    (s,) = _repeat(lambda: bn_relu_stats(x))
+    ref = bn_relu_stats_plain(x.double() if dtype == torch.float32 else x)
+    assert s.shape == (2, c) and s.dtype == torch.float32
+    assert _rel_l2(s, ref) <= _RED_TOL[dtype]
+    mean, inv, beta = (_rand(gen, (c,), dev, 0.3), torch.rand(c, generator=gen, device=dev) + 0.5,
+                       _rand(gen, (c,), dev, 0.3))
+    y = bn_relu_norm(x, mean, inv, beta)
+    y_ref = bn_relu_norm_plain(x, mean, inv, beta)
+    assert y.dtype == dtype and y.shape == x.shape
+    if dtype == torch.float32:
+        assert torch.equal(y, y_ref)
+    _close(y, y_ref, dtype)
+
+
+def test_bn_relu_fwd_strided_offset_input(dev):
+    """A channel slice (not 16-byte aligned, not contiguous) is made
+    contiguous; the result matches the plain version."""
+    from sports_field_homography_tpu_torch.ops.bn_relu import (
+        bn_relu_norm, bn_relu_norm_plain, bn_relu_stats, bn_relu_stats_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = _rand(gen, (2, 9, 11, 70), dev)[..., 3:67]
+    v = (_rand(gen, (64,), dev, 0.1), torch.rand(64, generator=gen, device=dev) + 0.5,
+         _rand(gen, (64,), dev, 0.1))
+    assert torch.equal(bn_relu_norm(x, *v), bn_relu_norm_plain(x.contiguous(), *v))
+    assert _rel_l2(bn_relu_stats(x), bn_relu_stats_plain(x.double())) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_relu_train_function(dev, dtype):
+    """bn_relu_train on the card (K7-fwd, then K7-bwd in its backward)
+    against the same Function's plain versions on the CPU."""
+    from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_train
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = (_rand(gen, (2, 13, 17, 96), dev, 2.0) + 0.3).to(dtype)
+    g, b = torch.rand(96, generator=gen, device=dev) + 0.5, _rand(gen, (96,), dev, 0.2)
+    cot = _rand(gen, (2, 13, 17, 96), dev).to(dtype)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        xs, gs, bs = (t.detach().to(d).requires_grad_() for t in (x, g, b))
+        y, mean, var = bn_relu_train(xs, gs, bs)
+        y.backward(cot.to(d))
+        runs[d] = (y, mean, var, xs.grad, gs.grad, bs.grad)
+    for got, ref in zip(runs["cuda"][:4], runs["cpu"][:4]):
+        _close(got.cpu(), ref, dtype)
+    for got, ref in zip(runs["cuda"][4:], runs["cpu"][4:]):
+        assert _rel_l2(got.cpu(), ref) <= _RED_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,ca,cb,cout,prologue", [
+    (2, 33, 65, 48, 80, 96, True),     # Ca != Cb, ragged tiles, prologue on x only
+    (2, 1, 37, 16, 8, 33, False),      # a 1-row image
+    (2, 45, 80, 64, 64, 64, False),    # the level-4 skip of a 640x360 frame
+])
+def test_conv3x3_two_input_edges(dev, dtype, n, h, w, ca, cb, cout, prologue):
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    a = _rand(gen, (n, h, w, ca), dev).to(dtype)
+    b = _rand(gen, (n, h, w, cb), dev).to(dtype)
+    wa = _rand(gen, (3, 3, ca, cout), dev, 1.0 / (3 * (ca + cb) ** 0.5))
+    wb = _rand(gen, (3, 3, cb, cout), dev, 1.0 / (3 * (ca + cb) ** 0.5))
+    bias = _rand(gen, (cout,), dev, 0.1)
+    pro = ((_rand(gen, (ca,), dev, 0.1), torch.rand(ca, generator=gen, device=dev) + 0.5,
+            _rand(gen, (ca,), dev, 0.1)) if prologue else None)
+    y, s = _repeat(lambda: conv3x3(a, wa, bias, pro, stats=True, x2=b, w2=wb))
+    if dtype == torch.float32:
+        y_ref, s_ref = conv3x3_plain(a.double(), wa.double(), bias.double(),
+                                     None if pro is None else tuple(t.double() for t in pro),
+                                     stats=True, x2=b.double(), w2=wb.double())
+    else:
+        y_ref, s_ref = conv3x3_plain(a, wa, bias, pro, stats=True, x2=b, w2=wb)
+    assert y.dtype == dtype and y.shape == (n, h, w, cout)
+    _close(y, y_ref, dtype)
+    assert _rel_l2(s, s_ref) <= _RED_TOL[dtype]
+    _close(conv3x3(a, wa, bias, pro, x2=b, w2=wb), y_ref, dtype)
+
+
+def test_skip_after_odd_pad_two_input(dev):
+    """The decoder's level-4 case: a 22x40 input up-sampled to 44x80 and
+    padded to the 45x80 skip, then the two-input conv and DoubleConv on
+    the card against the CPU."""
+    import torch.nn.functional as F
+
+    from sports_field_homography_tpu_torch.ops.double_conv import double_conv_train
+    from sports_field_homography_tpu_torch.ops.resize import upsample2x_bilinear
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    skip = _rand(gen, (2, 45, 80, 32), dev)
+    up = F.pad(upsample2x_bilinear(_rand(gen, (2, 22, 40, 32), dev)), (0, 0, 0, 0, 0, 1))
+    params = [_rand(gen, (3, 3, 64, 16), dev, 0.05), _rand(gen, (16,), dev, 0.1),
+              torch.rand(16, generator=gen, device=dev) + 0.5, _rand(gen, (16,), dev, 0.1),
+              _rand(gen, (3, 3, 16, 24), dev, 0.1), _rand(gen, (24,), dev, 0.1),
+              torch.rand(24, generator=gen, device=dev) + 0.5, _rand(gen, (24,), dev, 0.1)]
+    cot = _rand(gen, (2, 45, 80, 24), dev)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        xs = [t.detach().to(d).requires_grad_() for t in [skip, up] + params]
+        out = double_conv_train(xs[0], *xs[2:], x2=xs[1])
+        out[0].backward(cot.to(d))
+        runs[d] = [out[0].detach()] + [t.grad for t in xs]
+    _close(runs["cuda"][0].cpu(), runs["cpu"][0], torch.float32)
+    # 1e-3: a ReLU mask bit whose pre-activation lies within an ulp of 0
+    # follows the last bit of the batch statistics and moves a gradient.
+    # Not compared: the conv biases b1, b2 (runs[4], runs[8]), which feed a
+    # train-mode BN, so their true gradient is 0 and both hold rounding noise.
+    for i, (got, ref) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        if i not in (0, 4, 8):
+            assert _rel_l2(got.cpu(), ref) <= 1e-3, i
+
+
+def test_fwd_kernel_counters_and_refusals(dev):
+    from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_norm, bn_relu_stats
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+
+    x = torch.rand(1, 4, 4, 8, device=dev)
+    v = torch.ones(8, device=dev)
+    before = (bn_relu_stats.launches, bn_relu_norm.launches, conv3x3.dual_launches,
+              conv3x3.launches)
+    bn_relu_stats(x)
+    bn_relu_norm(x, v, v, v)
+    conv3x3(x, torch.rand(3, 3, 8, 4, device=dev), x2=x, w2=torch.rand(3, 3, 8, 4, device=dev))
+    after = (bn_relu_stats.launches, bn_relu_norm.launches, conv3x3.dual_launches,
+             conv3x3.launches)
+    assert all(a == b + 1 for a, b in zip(after, before))
+    with pytest.raises(TypeError, match="x2"):
+        conv3x3(x, torch.rand(3, 3, 8, 4, device=dev), x2=x.bfloat16(),
+                w2=torch.rand(3, 3, 8, 4, device=dev))
+    with pytest.raises(ValueError, match="different devices"):
+        bn_relu_norm(x, v.cpu(), v, v)
+    big = torch.rand(1, 1, 1, 4097, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        bn_relu_norm(big, *(torch.ones(4097, device=dev),) * 3)
