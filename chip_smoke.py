@@ -30,19 +30,30 @@ its seconds:
      K7-fwd       stats of 360x640x64 (f32, the stem's output, and bf16),
                   norm of 360x640x64 (f32: equal bit for bit; bf16);
      K2 two-input 64+64->64 at 360x640 (up4 conv1) and 512+512->512 at
-                  45x80 (the bilinear up1 conv1), with and without stats.
+                  45x80 (the bilinear up1 conv1), with and without stats;
+     K1 also on a {0, 2} template of 4 classes (label 2 -> 0.5, as JAX's
+                  interval table gives it).
    In f32 with TF32 off (elementwise outputs rtol = atol = 1e-4;
    reductions, whose kernels sum in another order, rel-L2 <= 1e-5 against
    the plain version in float64 on the same inputs), and in bf16 against
    the plain version on the same bf16 inputs, which like the kernels
    accumulates in f32 (rtol = atol = 2e-2; reductions rel-L2 <= 1e-3).
-   Every reduction kernel is run twice and must repeat bitwise.
+   Every reduction kernel is run twice and must repeat bitwise.  K2 and K5
+   have two routes, and each call here asserts the one it took: f32 on the
+   SIMT kernels (conv3x3.cu, wgrad3x3.cu), bf16 on the tensor-core kernels
+   (conv3x3_sm90.cu, wgrad3x3_sm90.cu).  Then each bf16 UNet level's K2
+   (one- and two-input, prologue, stats, dgrad) and K5 on the tensor cores,
+   checked and timed beside its library call and bound (``K2_LEVELS``,
+   ``K5_LEVELS``).
 4. predict: 16 seeded 640x360 PNG frames, a seeded resnet34 img+mask model
    saved as .pth, the predict CLI in-process (bf16, theta + consistency,
    batch 8, NCAA court).  Checks 16 finite records and that K1, K2 (one-
    and two-input), K3 and K7-fwd's norm launched; then 2 frames in f32 on
    CUDA (TF32 off) against the CPU (plain versions): theta max-abs <=
-   2e-4, score <= 1e-3.  Prints the device time of a batch of 8.
+   2e-4, score <= 1e-3.  Prints the device time of a batch of 8.  Every
+   bf16 K2 and K5 launch of the predict, train and test-CLI phases must
+   take the tensor-core route (``tc_launches`` == ``launches``), every f32
+   one of the parity runs the SIMT route.
 5. train: a seeded synthetic 640x360 set (24 train, 8 validation frames),
    a JSON conf (the flagship, bf16, the example conf's losses and RMSprop,
    consist_start_iter 0), the train CLI in-process: 3 steps at batch 8 and
@@ -75,7 +86,9 @@ its seconds:
 
 The last two lines are JSON: the kernel table (each kernel's launches in
 the deconv predict run, or for the training kernels the deconv train run;
-its error, times and bound), then ``{"ok": true, "device": {...}}``.
+for the f32 SIMT routes ``conv3x3_f32`` and ``wgrad3x3_f32`` the deconv
+predict's and train step's f32 parity runs; its error, times and bound),
+then ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -189,6 +202,19 @@ def _compare(name, got, ref, rtol, atol):
     return err
 
 
+def routed(kernel, tc, call):
+    """``call()``, which must launch ``kernel`` (``conv3x3`` or ``wgrad3x3``)
+    at least once: every launch on the tensor-core route when ``tc``, none
+    of them otherwise.  Returns what ``call`` returned."""
+    n0, t0 = kernel.launches, kernel.tc_launches
+    out = call()
+    n, t = kernel.launches - n0, kernel.tc_launches - t0
+    if n <= 0 or t != (n if tc else 0):
+        raise AssertionError(f"{kernel.__name__}: {t} of {n} launches took the tensor-core "
+                             f"route, expected {'all' if tc else 'none'}")
+    return out
+
+
 def phase_kernels(dev, card):
     """Each kernel against its plain version at the path's shapes."""
     import torch
@@ -199,7 +225,7 @@ def phase_kernels(dev, card):
     from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
     from sports_field_homography_tpu_torch.ops.deconv import deconv2x2, deconv2x2_plain
     from sports_field_homography_tpu_torch.ops.warp import (
-        template_value_step, warp_nearest, warp_nearest_plain)
+        template_value_table, warp_nearest, warp_nearest_plain)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -209,22 +235,22 @@ def phase_kernels(dev, card):
     # --- K1: nearest warp -------------------------------------------------
     labels_np = open_court_template(COURT_IMG, 4, size=(1280, 720))
     labels = torch.from_numpy(labels_np).to(dev)
-    step = template_value_step(labels_np, 4)
+    values = template_value_table(labels_np, 4).to(dev)
     eye = torch.eye(3, device=dev).expand(BATCH, 3, 3)
     noise = torch.randn((BATCH, 3, 3), generator=gen, device=dev)
     theta = eye + noise * torch.tensor([[0.1, 0.1, 0.2], [0.1, 0.1, 0.2],
                                         [0.05, 0.05, 0.0]], device=dev)
     k1_err, k1_ms = 0.0, None
     for sample in (None, (360, 640)):
-        got = warp_nearest(labels, theta, (720, 1280), sample_hw=sample, value_step=step)
-        ref = warp_nearest_plain(labels, theta, (720, 1280), sample_hw=sample, value_step=step)
+        got = warp_nearest(labels, theta, (720, 1280), values, sample)
+        ref = warp_nearest_plain(labels, theta, (720, 1280), values, sample)
         torch.cuda.synchronize()
         n_diff = int((got != ref).sum().item())
         covered = float((got > 0).float().mean().item())
         if n_diff:
             raise AssertionError(f"K1 warp sample_hw={sample}: {n_diff} labels differ")
-        ms = cuda_ms(lambda: warp_nearest(labels, theta, (720, 1280), sample, step))
-        pms = cuda_ms(lambda: warp_nearest_plain(labels, theta, (720, 1280), sample, step))
+        ms = cuda_ms(lambda: warp_nearest(labels, theta, (720, 1280), values, sample))
+        pms = cuda_ms(lambda: warp_nearest_plain(labels, theta, (720, 1280), values, sample))
         log(f"K1 warp_nearest 1280x720 sample_hw={sample} B={BATCH}: labels equal "
             f"({got.numel()} samples, {covered:.1%} on the court); "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms [{card}]")
@@ -240,8 +266,23 @@ def phase_kernels(dev, card):
         f"{bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
     results["warp_nearest"] = entry(k1_err, *k1_ms, lib, bnd)
     del tmpl, grid
+    # a template that skips a label ({0, 2} of 4 classes): the value table
+    # gives label 2 the interval table's 0.5, and the card agrees bitwise
+    gap_np = np.zeros((36, 64), np.uint8)
+    gap_np[6:30, 10:50] = 2
+    gap_vals = template_value_table(gap_np, 4).to(dev)
+    gap = torch.from_numpy(gap_np).to(dev)
+    for sample in (None, (18, 32)):
+        got = warp_nearest(gap, theta, (36, 64), gap_vals, sample)
+        ref = warp_nearest_plain(gap, theta, (36, 64), gap_vals, sample)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref) or float(got.max()) != 0.5:
+            raise AssertionError(f"K1 gap template sample_hw={sample}: kernel and plain "
+                                 f"version differ, or label 2 is not 0.5")
+    log("K1 warp_nearest on a {0, 2} template of 4 classes: labels equal to the plain "
+        "version bit for bit, label 2 -> 0.5 (the interval table's value)")
 
-    # --- K2: conv3x3 ------------------------------------------------------
+    # --- K2: conv3x3: f32 on the SIMT kernel, bf16 on the tensor cores -------
     k2_err, k2_ms = 0.0, None
     for (h, w, c) in ((360, 640, 64), (180, 320, 128)):
         x32 = torch.randn((BATCH, h, w, c), generator=gen, device=dev)
@@ -252,21 +293,27 @@ def phase_kernels(dev, card):
                torch.randn((c,), generator=gen, device=dev) * 0.1)
         for prologue in (None, pro):
             tag = f"{c}->{c} at {h}x{w}{' +prologue' if prologue else ''}"
-            got = conv3x3(x32, wt, b, prologue)
+            got = routed(conv3x3, False, lambda: conv3x3(x32, wt, b, prologue))
             err = _compare(f"K2 f32 {tag}", got, conv3x3_plain(x32, wt, b, prologue), 1e-4, 1e-4)
             ms = cuda_ms(lambda: conv3x3(x32, wt, b, prologue))
             pms = cuda_ms(lambda: conv3x3_plain(x32, wt, b, prologue))
-            log(f"K2 conv3x3 f32 {tag}: max abs err {err:.2e}; kernel {ms:.3f} ms, "
+            log(f"K2 conv3x3 f32 (SIMT) {tag}: max abs err {err:.2e}; kernel {ms:.3f} ms, "
                 f"plain (cuDNN f32) {pms:.3f} ms [{card}]")
+            if c == 64 and prologue is None:
+                lib32 = cuda_ms(lambda: F.conv2d(nchw(x32), oihw(wt), b, padding=1))
+                bnd32 = bound(2.0 * BATCH * h * w * 9 * c * c, nbytes(x32, wt, got), PEAK_F32)
+                log(f"K2 f32 library F.conv2d (f32, TF32 off) {tag}: {lib32:.3f} ms; bound "
+                    f"{bnd32[0]:.3f} ms ({bnd32[1]}) [{card}]")
+                results["conv3x3_f32"] = entry(err, ms, pms, lib32, bnd32)
             xb, wb = x32.bfloat16(), wt.bfloat16()
-            got = conv3x3(xb, wb, b, prologue)
+            got = routed(conv3x3, True, lambda: conv3x3(xb, wb, b, prologue))
             ref = conv3x3_plain(xb.float(), wb.float(), b, prologue)
             errb = _compare(f"K2 bf16 {tag}", got, ref, 2e-2, 2e-2)
             ms_b = cuda_ms(lambda: conv3x3(xb, wb, b, prologue))
             pms_b = cuda_ms(lambda: conv3x3_plain(xb, wb, b, prologue))
-            log(f"K2 conv3x3 bf16 {tag}: max abs err vs f32 {errb:.2e}; kernel "
+            log(f"K2 conv3x3 bf16 (tensor cores) {tag}: max abs err vs f32 {errb:.2e}; kernel "
                 f"{ms_b:.3f} ms, plain (cuDNN) {pms_b:.3f} ms [{card}]")
-            k2_err = max(k2_err, err, errb)
+            k2_err = max(k2_err, errb)
             if c == 64 and prologue is None:
                 k2_ms = (ms_b, pms_b)
                 wo = oihw(wb)
@@ -364,13 +411,16 @@ def phase_predict(dev, card, work, bilinear=False):
                "bn_relu_norm": bn_relu_norm}
     for fn in kernels.values():
         fn.launches = 0
-    conv3x3.dual_launches = 0
+    conv3x3.dual_launches = conv3x3.tc_launches = 0
     stats = predict_cli.process(
         ["--img_dir", frames, "--load", ckpt, "--dst_dir", dst,
          "--req_outputs", "theta,consistency", "--batchsize", str(BATCH),
          "--court_img", COURT_IMG, "--court_poi", COURT_POI] + flag)
     launches = _predict_launches(kernels)
-    log(f"predict {variant}: kernel launches in the CLI run: {launches}")
+    log(f"predict {variant}: kernel launches in the CLI run: {launches}; K2 on the "
+        f"tensor cores {conv3x3.tc_launches} of {conv3x3.launches}")
+    if conv3x3.tc_launches != conv3x3.launches:
+        raise AssertionError(f"predict {variant}: a bf16 K2 launch left the tensor-core route")
     for name, n in launches.items():
         if n <= 0 and not (bilinear and name == "deconv2x2"):
             raise AssertionError(f"predict {variant}: {name} was never launched by the path")
@@ -410,9 +460,15 @@ def phase_predict(dev, card, work, bilinear=False):
     for device in ("cuda", "cpu"):
         Args.device = device
         b = build_model(Args, load=ckpt, fold_bn=True)
+        n0, t0 = conv3x3.launches, conv3x3.tc_launches
         with torch.inference_mode():
-            p = b.model.predict(x.to(b.device), b.court_labels, b.value_step)
+            p = b.model.predict(x.to(b.device), b.court_labels, b.value_table)
         res[device] = {k: p[k].float().cpu() for k in ("theta", "consist_score")}
+        if device == "cuda":    # f32: every K2 launch on the SIMT kernel
+            launches["conv3x3_f32"] = conv3x3.launches - n0
+            if launches["conv3x3_f32"] <= 0 or conv3x3.tc_launches != t0:
+                raise AssertionError(f"predict {variant} f32: K2 did not run on the SIMT "
+                                     "route alone")
     d_theta = (res["cuda"]["theta"] - res["cpu"]["theta"]).abs().max().item()
     d_score = (res["cuda"]["consist_score"] - res["cpu"]["consist_score"]).abs().max().item()
     log(f"predict {variant} f32 CUDA vs CPU: theta max abs {d_theta:.3e} (bound 2e-4), "
@@ -427,7 +483,7 @@ def phase_predict(dev, card, work, bilinear=False):
 
     def step():
         with torch.inference_mode():
-            b.model.predict(xb.float() / 255.0, b.court_labels, b.value_step)
+            b.model.predict(xb.float() / 255.0, b.court_labels, b.value_table)
 
     ms = cuda_ms(step, warmup=2, runs=5)
     log(f"predict {variant}: theta+consistency 640x360 bf16 batch {BATCH}: {ms:.2f} ms/batch, "
@@ -499,22 +555,23 @@ def phase_train_kernels(dev, card):
         b = rnd(cout, scale=0.1)
         pro = prologue(cin) if pro_on else None
         tag = f"{cin}->{cout} at {h}x{w}{' +prologue' if pro_on else ''}"
-        y, s = conv3x3(x, wt, b, pro, stats=True)
+        y, s = routed(conv3x3, False, lambda: conv3x3(x, wt, b, pro, stats=True))
         y_ref, _ = conv3x3_plain(x, wt, b, pro, stats=True)
         _, s64 = conv3x3_plain(x.double(), wt.double(), b.double(), as64(pro), stats=True)
         e = _compare(f"K2+stats f32 {tag}", y, y_ref, 1e-4, 1e-4)
         r = _reduction(f"K2+stats f32 sums {tag}", s, s64, 1e-5)
         xb, wb = x.bfloat16(), wt.bfloat16()
-        yb, sb = conv3x3(xb, wb, b, pro, stats=True)
+        yb, sb = routed(conv3x3, True, lambda: conv3x3(xb, wb, b, pro, stats=True))
         yb_ref, sb_ref = conv3x3_plain(xb, wb, b, pro, stats=True)
         eb = _compare(f"K2+stats bf16 {tag}", yb, yb_ref, 2e-2, 2e-2)
         rb = _reduction(f"K2+stats bf16 sums {tag}", sb, sb_ref, 1e-3)
         rep = _repeats_bitwise(f"K2+stats {tag}", lambda: conv3x3(xb, wb, b, pro, stats=True))
         ms = cuda_ms(lambda: conv3x3(xb, wb, b, pro, stats=True))
         pms = cuda_ms(lambda: conv3x3_plain(xb, wb, b, pro, stats=True))
-        log(f"K2+stats conv3x3 {tag}: f32 max abs err {e:.2e}, sums rel-L2 {r:.2e} "
-            f"(vs float64); bf16 max abs err {eb:.2e}, sums rel-L2 {rb:.2e}; {rep}; "
-            f"bf16 kernel {ms:.3f} ms, plain (f32 cuDNN conv + sums) {pms:.3f} ms [{card}]")
+        log(f"K2+stats conv3x3 {tag}: f32 (SIMT) max abs err {e:.2e}, sums rel-L2 {r:.2e} "
+            f"(vs float64); bf16 (tensor cores) max abs err {eb:.2e}, sums rel-L2 {rb:.2e}; "
+            f"{rep}; bf16 kernel {ms:.3f} ms, plain (f32 cuDNN conv + sums) {pms:.3f} ms "
+            f"[{card}]")
         err = max(err, e, eb)
         timing = timing or (ms, pms)
         del x, y, y_ref, xb, yb, yb_ref
@@ -528,13 +585,13 @@ def phase_train_kernels(dev, card):
         dy = rnd(BATCH, h, w, cout)
         pro = prologue(cin) if pro_on else None
         tag = f"{cin}->{cout} at {h}x{w}{' +prologue' if pro_on else ''}"
-        dw, db = wgrad3x3(x, dy, pro)
+        dw, db = routed(wgrad3x3, False, lambda: wgrad3x3(x, dy, pro))
         dw64, db64 = wgrad3x3_plain(x.double(), dy.double(), as64(pro))
         r = max(_reduction(f"K5 f32 dW {tag}", dw, dw64, 1e-5),
                 _reduction(f"K5 f32 db {tag}", db, db64, 1e-5))
         r_plain = _rel_l2(wgrad3x3_plain(x, dy, pro)[0], dw64)
         xb, dyb = x.bfloat16(), dy.bfloat16()
-        dwb, dbb = wgrad3x3(xb, dyb, pro)
+        dwb, dbb = routed(wgrad3x3, True, lambda: wgrad3x3(xb, dyb, pro))
         dwb_ref, dbb_ref = wgrad3x3_plain(xb, dyb, pro)
         rb = max(_reduction(f"K5 bf16 dW {tag}", dwb, dwb_ref, 1e-3),
                  _reduction(f"K5 bf16 db {tag}", dbb, dbb_ref, 1e-3))
@@ -542,11 +599,19 @@ def phase_train_kernels(dev, card):
         rep = _repeats_bitwise(f"K5 {tag}", lambda: wgrad3x3(xb, dyb, pro))
         ms = cuda_ms(lambda: wgrad3x3(xb, dyb, pro))
         pms = cuda_ms(lambda: wgrad3x3_plain(xb, dyb, pro))
-        log(f"K5 wgrad3x3 {tag}: f32 rel-L2 {r:.2e} vs float64 (plain f32 cuDNN "
-            f"{r_plain:.2e}); bf16 rel-L2 {rb:.2e}; {rep}; bf16 kernel {ms:.3f} ms, "
-            f"plain (cuDNN wgrad) {pms:.3f} ms [{card}]")
+        log(f"K5 wgrad3x3 {tag}: f32 (SIMT) rel-L2 {r:.2e} vs float64 (plain f32 cuDNN "
+            f"{r_plain:.2e}); bf16 (tensor cores) rel-L2 {rb:.2e}; {rep}; bf16 kernel "
+            f"{ms:.3f} ms, plain (cuDNN wgrad) {pms:.3f} ms [{card}]")
         err = max(err, e)
         if timing is None:      # the line's case: no prologue, as the library call
+            ms32 = cuda_ms(lambda: wgrad3x3(x, dy, pro))
+            pms32 = cuda_ms(lambda: wgrad3x3_plain(x, dy, pro))
+            bnd32 = bound(2.0 * BATCH * h * w * 9 * cin * cout, nbytes(x, dy, dw, db), PEAK_F32)
+            log(f"K5 wgrad3x3 f32 (SIMT) {tag}: kernel {ms32:.3f} ms, plain and library "
+                f"(torch.nn.grad.conv2d_weight f32, TF32 off) {pms32:.3f} ms; bound "
+                f"{bnd32[0]:.3f} ms ({bnd32[1]}) [{card}]")
+            results["wgrad3x3_f32"] = entry(float((dw - dw64).abs().max()), ms32, pms32,
+                                            pms32, bnd32)
             lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
                 nchw(xb), (cout, cin, 3, 3), nchw(dyb), padding=1))
             bnd = bound(2.0 * BATCH * h * w * 9 * cin * cout,
@@ -716,14 +781,15 @@ def phase_fwd_kernels(dev, card):
         wb = rnd(3, 3, ca, cout, scale=1.0 / (3.0 * (2 * ca) ** 0.5))
         bias = rnd(cout, scale=0.1)
         tag = f"{ca}+{ca}->{cout} at {h}x{w}"
-        y, st = conv3x3(a, wa, bias, stats=True, x2=b, w2=wb)
+        y, st = routed(conv3x3, False, lambda: conv3x3(a, wa, bias, stats=True, x2=b, w2=wb))
         e = _compare(f"K2 two-input f32 {tag}", y,
                      conv3x3_plain(a, wa, bias, x2=b, w2=wb), 1e-4, 1e-4)
         _, s64 = conv3x3_plain(a.double(), wa.double(), bias.double(), stats=True,
                                x2=b.double(), w2=wb.double())
         r = _reduction(f"K2 two-input f32 sums {tag}", st, s64, 1e-5)
         ab, bb, wab, wbb = a.bfloat16(), b.bfloat16(), wa.bfloat16(), wb.bfloat16()
-        yb, sb = conv3x3(ab, wab, bias, stats=True, x2=bb, w2=wbb)
+        yb, sb = routed(conv3x3, True,
+                        lambda: conv3x3(ab, wab, bias, stats=True, x2=bb, w2=wbb))
         yb_ref, sb_ref = conv3x3_plain(ab, wab, bias, stats=True, x2=bb, w2=wbb)
         eb = _compare(f"K2 two-input bf16 {tag}", yb, yb_ref, 2e-2, 2e-2)
         rb = _reduction(f"K2 two-input bf16 sums {tag}", sb, sb_ref, 1e-3)
@@ -747,6 +813,109 @@ def phase_fwd_kernels(dev, card):
         del a, b, y, yb, yb_ref, ab, bb, cat_in
     results["conv3x3_dual"] = entry(err, *line)
     return results
+
+
+# bf16 shapes of K2 and K5 on the UNet's levels at 640x360, batch 8:
+# (tag, H, W, Cin, Cin2, Cout, prologue, stats, dgrad)
+K2_LEVELS = (("64->64", 360, 640, 64, 0, 64, False, False, False),
+             ("64->64 +prologue", 360, 640, 64, 0, 64, True, False, False),
+             ("64->64 +prologue +stats", 360, 640, 64, 0, 64, True, True, False),
+             ("128->128", 180, 320, 128, 0, 128, False, False, False),
+             ("512->512", 45, 80, 512, 0, 512, False, False, False),
+             ("1024->1024", 22, 40, 1024, 0, 1024, False, False, False),
+             ("64+64->64", 360, 640, 64, 64, 64, False, False, False),
+             ("512+512->512", 45, 80, 512, 512, 512, False, False, False),
+             ("dgrad 1024->512", 45, 80, 1024, 0, 512, False, False, True))
+K5_LEVELS = (("64->64", 360, 640, 64, 64, False), ("64->64 +prologue", 360, 640, 64, 64, True),
+             ("128->128", 180, 320, 128, 128, False), ("512->512", 45, 80, 512, 512, False),
+             ("1024->1024", 22, 40, 1024, 1024, False), ("1024->512", 45, 80, 1024, 512, False))
+
+
+def phase_levels(dev, card):
+    """The tensor-core K2 and K5 at each UNet level's bf16 shape (batch 8):
+    each against its plain version, timed beside one library call (for K2
+    ``F.conv2d`` channels_last on the same operands -- the concat for two
+    inputs, the flipped weights for a dgrad -- without the prologue or the
+    stats, which no single call computes; for K5
+    ``torch.nn.grad.conv2d_weight``) and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from sports_field_homography_tpu_torch.ops.conv3x3 import (
+        conv3x3, conv3x3_plain, dgrad_weights)
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3, wgrad3x3_plain
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).bfloat16()
+
+    def prologue(c):
+        return (torch.randn((c,), generator=gen, device=dev) * 0.1,
+                torch.rand((c,), generator=gen, device=dev) + 0.5,
+                torch.randn((c,), generator=gen, device=dev) * 0.1)
+
+    rows = []
+    for tag, h, w, cin, cin2, cout, pro_on, st, dgrad in K2_LEVELS:
+        x = rnd(BATCH, h, w, cin)
+        x2 = rnd(BATCH, h, w, cin2) if cin2 else None
+        if dgrad:    # the conv's weights (3, 3, Cout, Cin): its dgrad maps Cin -> Cout
+            wt = dgrad_weights(rnd(3, 3, cout, cin, scale=1.0 / (3.0 * cin ** 0.5)))
+        else:
+            wt = rnd(3, 3, cin, cout, scale=1.0 / (3.0 * (cin + cin2) ** 0.5))
+        w2 = rnd(3, 3, cin2, cout, scale=1.0 / (3.0 * (cin + cin2) ** 0.5)) if cin2 else None
+        b = None if dgrad else torch.randn((cout,), generator=gen, device=dev) * 0.1
+        pro = prologue(cin) if pro_on else None
+
+        def run():
+            return conv3x3(x, wt, b, pro, stats=st, x2=x2, w2=w2)
+
+        got = routed(conv3x3, True, run)
+        ref = conv3x3_plain(x, wt, b, pro, stats=st, x2=x2, w2=w2)
+        if st:
+            _reduction(f"K2 bf16 {tag} sums", got[1], ref[1], 1e-3)
+            _repeats_bitwise(f"K2 bf16 {tag}", run)
+            got, ref = got[0], ref[0]
+        err = _compare(f"K2 bf16 {tag}", got, ref, 2e-2, 2e-2)
+        ms = cuda_ms(run)
+        xl = nchw(x) if x2 is None else torch.cat([nchw(x), nchw(x2)], dim=1)
+        xl = xl.contiguous(memory_format=torch.channels_last)
+        wl = oihw(wt if w2 is None else torch.cat([wt, w2], dim=2)).contiguous(
+            memory_format=torch.channels_last)
+        bl = None if b is None else b.bfloat16()
+        lib = cuda_ms(lambda: F.conv2d(xl, wl, bl, padding=1))
+        bnd = bound(2.0 * BATCH * h * w * 9 * (cin + cin2) * cout,
+                    nbytes(x, wt, got) + (nbytes(x2, w2) if x2 is not None else 0))
+        rows.append(("K2", tag, f"{h}x{w}", ms, lib, bnd))
+        log(f"level K2 bf16 {tag} at {h}x{w}: max abs err {err:.2e}; tensor-core kernel "
+            f"{ms:.3f} ms, library F.conv2d {lib:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}); "
+            f"kernel / library {ms / lib:.2f}, kernel / bound {ms / bnd[0]:.2f} [{card}]")
+        del x, x2, wt, w2, got, ref, xl, wl
+    for tag, h, w, cin, cout, pro_on in K5_LEVELS:
+        x, dy = rnd(BATCH, h, w, cin), rnd(BATCH, h, w, cout)
+        pro = prologue(cin) if pro_on else None
+
+        def run():
+            return wgrad3x3(x, dy, pro)
+
+        dw, db = routed(wgrad3x3, True, run)
+        dw_ref, db_ref = wgrad3x3_plain(x, dy, pro)
+        rel = max(_reduction(f"K5 bf16 {tag} dW", dw, dw_ref, 1e-3),
+                  _reduction(f"K5 bf16 {tag} db", db, db_ref, 1e-3))
+        _repeats_bitwise(f"K5 bf16 {tag}", run)
+        ms = cuda_ms(run)
+        lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(nchw(x), (cout, cin, 3, 3), nchw(dy),
+                                                          padding=1))
+        bnd = bound(2.0 * BATCH * h * w * 9 * cin * cout, nbytes(x, dy, dw, db))
+        rows.append(("K5", tag, f"{h}x{w}", ms, lib, bnd))
+        log(f"level K5 bf16 {tag} at {h}x{w}: rel-L2 {rel:.2e}, bitwise repeat; tensor-core "
+            f"kernel {ms:.3f} ms, library conv2d_weight {lib:.3f} ms, bound {bnd[0]:.3f} ms "
+            f"({bnd[1]}); kernel / library {ms / lib:.2f}, kernel / bound {ms / bnd[0]:.2f} "
+            f"[{card}]")
+        del x, dy, dw, db, dw_ref
+    log("levels table (kernel | shape | level | kernel ms | library ms | bound ms | bound by):")
+    for k, tag, lvl, ms, lib, bnd in rows:
+        log(f"| {k} | {tag} | {lvl} | {ms:.3f} | {lib:.3f} | {bnd[0]:.3f} | {bnd[1]} |")
 
 
 def _train_conf(work, data, name="flagship", **extra):
@@ -989,7 +1158,8 @@ def phase_train(dev, card, work, bilinear=False):
                 "bn_relu_norm": bn_relu_norm}
     for fn in counters.values():
         fn.launches = 0
-    conv3x3.stats_launches = conv3x3.dual_launches = 0
+    conv3x3.stats_launches = conv3x3.dual_launches = conv3x3.tc_launches = 0
+    wgrad3x3.tc_launches = 0
     t0 = time.perf_counter()
     hist = train_cli.main(["-c", conf])
     torch.cuda.synchronize()
@@ -997,7 +1167,12 @@ def phase_train(dev, card, work, bilinear=False):
     launches = {name: fn.launches for name, fn in counters.items()}
     launches["conv3x3_stats"] = conv3x3.stats_launches
     launches["conv3x3_dual"] = conv3x3.dual_launches
-    log(f"train {variant}: kernel launches in the CLI run: {launches}")
+    log(f"train {variant}: kernel launches in the CLI run: {launches}; on the tensor cores: "
+        f"K2 {conv3x3.tc_launches} of {conv3x3.launches}, K5 {wgrad3x3.tc_launches} of "
+        f"{wgrad3x3.launches}")
+    if conv3x3.tc_launches != conv3x3.launches or wgrad3x3.tc_launches != wgrad3x3.launches:
+        raise AssertionError(f"train {variant}: a bf16 K2 or K5 launch left the tensor-core "
+                             "route")
     deconv_only = ("deconv2x2", "deconv2x2_backward")
     for name, n in launches.items():
         if n <= 0 and not (bilinear and name in deconv_only):
@@ -1082,9 +1257,20 @@ def _step_parity(tag, bilinear=False, seed=5):
     measures the same of the JAX step)."""
     import torch
 
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3
+
     kw = dict(seed=seed, bilinear=bilinear)
-    (lg, gg, _), (lc, gc, _), (_, g64, _), (_, gu, _) = (
-        parity_step("cuda", **kw), parity_step("cpu", **kw),
+    counts = (conv3x3.launches, conv3x3.tc_launches, wgrad3x3.launches, wgrad3x3.tc_launches)
+    lg, gg, _ = parity_step("cuda", **kw)
+    k2_n, k2_tc, k5_n, k5_tc = (a - b for a, b in zip(
+        (conv3x3.launches, conv3x3.tc_launches, wgrad3x3.launches, wgrad3x3.tc_launches),
+        counts))
+    if k2_n <= 0 or k5_n <= 0 or k2_tc or k5_tc:
+        raise AssertionError(f"{tag}: the f32 step's K2 / K5 did not run on the SIMT route "
+                             f"alone ({k2_tc} of {k2_n}, {k5_tc} of {k5_n} on tensor cores)")
+    (lc, gc, _), (_, g64, _), (_, gu, _) = (
+        parity_step("cpu", **kw),
         parity_step("cpu", dtype=torch.float64, **kw),
         parity_step("cpu", perturb=2.0 ** -23, **kw))
     floor_factor = 2.0 if bilinear else 0.0
@@ -1116,7 +1302,9 @@ def _step_parity(tag, bilinear=False, seed=5):
         f"{checked} gradients (bound 2e-2 + {floor_factor:g} x one-ulp move); one ulp on "
         f"the CPU weights: "
         f"worst {ulp_worst:.3e} ({ulp_name}), median {ulp_median:.3e}; against float64: "
-        + ", ".join(f"{d} worst {w:.3e} median {m:.3e}" for d, (w, _, m, _) in to64.items()))
+        + ", ".join(f"{d} worst {w:.3e} median {m:.3e}" for d, (w, _, m, _) in to64.items())
+        + f"; SIMT launches K2 {k2_n}, K5 {k5_n}")
+    return k5_n
 
 
 def phase_train_parity():
@@ -1125,12 +1313,13 @@ def phase_train_parity():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    _step_parity("train parity")
+    k5_f32 = _step_parity("train parity")
     # every UNet module of that step, and of steps at larger and odd sizes,
     # replayed from the same inputs and cotangent on CUDA and in float64
     for size, b in (((64, 36), 3), ((128, 72), 3), ((256, 144), 2)):
         _module_replay(size, b, 5)
     torch.backends.cudnn.deterministic = False
+    return k5_f32
 
 
 def phase_bilinear_parity():
@@ -1171,22 +1360,25 @@ def phase_test_cli(dev, card, work, cp_dir, data):
     grids = []
     k1 = reconstructor.warp_nearest
 
-    def recording_k1(labels, theta, out_hw, sample_hw=None, value_step=1.0):
+    def recording_k1(labels, theta, out_hw, values, sample_hw=None):
         grids.append((tuple(out_hw), sample_hw))
-        return k1(labels, theta, out_hw, sample_hw, value_step)
+        return k1(labels, theta, out_hw, values, sample_hw)
 
     kernels = {"warp_nearest": warp_nearest, "conv3x3": conv3x3, "deconv2x2": deconv2x2,
                "bn_relu_norm": bn_relu_norm}
     for fn in kernels.values():
         fn.launches = 0
-    conv3x3.dual_launches = 0
+    conv3x3.dual_launches = conv3x3.tc_launches = 0
     reconstructor.warp_nearest = recording_k1
     try:
         res = test_cli.main(argv + ["--device", "cuda"])["1"]
     finally:
         reconstructor.warp_nearest = k1
     launches = _predict_launches(kernels)
-    log(f"test CLI: kernel launches in the run: {launches}; K1 grids {sorted(set(grids))}")
+    log(f"test CLI: kernel launches in the run: {launches}; K1 grids {sorted(set(grids))}; "
+        f"K2 on the tensor cores {conv3x3.tc_launches} of {conv3x3.launches}")
+    if conv3x3.tc_launches != conv3x3.launches:
+        raise AssertionError("test CLI: a bf16 K2 launch left the tensor-core route")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"test CLI: {name} was never launched")
@@ -1202,8 +1394,11 @@ def phase_test_cli(dev, card, work, cp_dir, data):
     log("test CLI bf16: " + ", ".join(f"{k} {res[k]:.6g}" for k in keys)
         + f"; {res['elapsed_ms']:.1f} ms for 8 frames (device-synchronised) [{card}]")
 
+    tc0 = conv3x3.tc_launches
     f32 = {d: test_cli.main(argv + ["--device", d, "--compute_dtype", "float32"])["1"]
            for d in ("cuda", "cpu")}
+    if conv3x3.tc_launches != tc0:
+        raise AssertionError("test CLI f32: a K2 launch took the tensor-core route")
     worst = max(abs(f32["cuda"][k] - f32["cpu"][k]) / max(abs(f32["cpu"][k]), 1e-30)
                 for k in keys)
     log("test CLI f32 CUDA vs CPU: " + ", ".join(
@@ -1260,31 +1455,34 @@ def flagship_predict_step(dev, batch_size, bilinear=False):
     from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
     from sports_field_homography_tpu_torch.models.layers import init_weights
     from sports_field_homography_tpu_torch.ops.fold_bn import fold_batchnorm
-    from sports_field_homography_tpu_torch.ops.warp import template_value_step
+    from sports_field_homography_tpu_torch.ops.warp import template_value_table
 
     model = Reconstructor(ReconstructorConfig(warp_size=(1280, 720), unet_bilinear=bilinear),
                           dtype=torch.bfloat16)
     init_weights(model, torch.Generator().manual_seed(0))
     model = fold_batchnorm(model).to(dev).eval()
     labels_np = open_court_template(COURT_IMG, 4, size=(1280, 720))
-    labels, step = torch.from_numpy(labels_np).to(dev), template_value_step(labels_np, 4)
+    labels = torch.from_numpy(labels_np).to(dev)
+    values = template_value_table(labels_np, 4).to(dev)
     frames = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (batch_size, 360, 640, 3), dtype=np.uint8)).to(dev)
 
     def run():
         with torch.inference_mode():
-            return model.predict(frames.float() / 255.0, labels, step)
+            return model.predict(frames.float() / 255.0, labels, values)
 
     return run
 
 
 KERNEL_TABLE = [   # name, source, the TPU kernel it replaces
     ("warp_nearest", "warp_nearest.cu", "sports_field_homography_tpu/ops/warp_pallas.py:96"),
-    ("conv3x3", "conv3x3.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:151"),
-    ("conv3x3_dual", "conv3x3.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:157"),
+    ("conv3x3", "conv3x3_sm90.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:151"),
+    ("conv3x3_dual", "conv3x3_sm90.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:157"),
+    ("conv3x3_f32", "conv3x3.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:151"),
     ("deconv2x2", "deconv2x2.cu", "sports_field_homography_tpu/ops/deconv_pallas.py:77"),
     ("deconv2x2_backward", "deconv2x2.cu", "sports_field_homography_tpu/ops/deconv_pallas.py:118"),
-    ("wgrad3x3", "wgrad3x3.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:291"),
+    ("wgrad3x3", "wgrad3x3_sm90.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:291"),
+    ("wgrad3x3_f32", "wgrad3x3.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:291"),
     ("bn_relu_bwd", "bn_relu_bwd.cu", "sports_field_homography_tpu/ops/bn_pallas.py:129"),
     ("bn_relu_stats", "bn_relu_fwd.cu", "sports_field_homography_tpu/ops/bn_pallas.py:109"),
     ("bn_relu_norm", "bn_relu_fwd.cu", "sports_field_homography_tpu/ops/bn_pallas.py:123"),
@@ -1315,6 +1513,7 @@ def main() -> int:
     kres = run("kernels", phase_kernels, dev, card)
     kres.update(run("train kernels", phase_train_kernels, dev, card))
     kres.update(run("K7-fwd and two-input K2", phase_fwd_kernels, dev, card))
+    run("K2 and K5 levels", phase_levels, dev, card)
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -1324,7 +1523,7 @@ def main() -> int:
     train_launches, cp_dir, data = run("train", phase_train, dev, card, work)
     launches.update({k: train_launches[k] for k in
                      ("deconv2x2_backward", "wgrad3x3", "bn_relu_bwd", "bn_relu_stats")})
-    run("train parity", phase_train_parity)
+    launches["wgrad3x3_f32"] = run("train parity", phase_train_parity)
     run("predict bilinear", phase_predict, dev, card, work, True)
     run("train bilinear", phase_train, dev, card, work, True)
     run("train parity bilinear", phase_bilinear_parity)

@@ -24,8 +24,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # kernel-name patterns -> group, first match wins
 _GROUPS = [
-    ("K2 conv3x3 (fwd, stats, dgrad)", ("conv3x3_kernel",)),
-    ("K5 wgrad3x3", ("wgrad3x3_kernel",)),
+    ("K2 conv3x3 tensor cores (fwd, stats, dgrad)", ("conv3x3_sm90_kernel",)),
+    ("K5 wgrad3x3 tensor cores", ("wgrad3x3_sm90_kernel",)),
+    ("K2 conv3x3 SIMT", ("conv3x3_kernel",)),
+    ("K5 wgrad3x3 SIMT", ("wgrad3x3_kernel",)),
     ("K7-bwd bn_relu_bwd", ("bn_relu_bwd",)),
     ("K7-fwd bn_relu stats + norm", ("bn_relu_stats", "bn_relu_norm")),
     ("K3 deconv2x2 fwd", ("deconv2x2_kernel",)),

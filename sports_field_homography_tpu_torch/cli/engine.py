@@ -16,7 +16,7 @@ from ..geometry.court import load_court_poi
 from ..models import Reconstructor, ReconstructorConfig
 from ..models.layers import init_weights
 from ..ops.fold_bn import fold_batchnorm
-from ..ops.warp import template_value_step
+from ..ops.warp import template_value_table
 from ..utils.config import resolve_asset
 
 __all__ = ["ModelBundle", "build_model", "discover_conf", "dtype_from_str"]
@@ -31,7 +31,7 @@ def dtype_from_str(name: str) -> torch.dtype:
 class ModelBundle:
     model: Reconstructor
     court_labels: torch.Tensor        # (Ht, Wt) uint8 on the model's device
-    value_step: float
+    value_table: torch.Tensor         # (256,) f32 label values, same device
     court_poi: np.ndarray             # (N, 2) in [-1, 1], host
     config: ReconstructorConfig
     device: torch.device
@@ -79,7 +79,7 @@ def build_model(args, load: Optional[str] = None, seed: int = 0,
                                  size=args.court_size)
     court_poi = load_court_poi(resolve_asset(args.court_poi)).astype(np.float32)
     return ModelBundle(model, torch.from_numpy(labels).to(device),
-                       template_value_step(labels, args.mask_classes),
+                       template_value_table(labels, args.mask_classes).to(device),
                        court_poi, cfg, device)
 
 

@@ -149,7 +149,7 @@ def process(argv=None, num_data_workers: int = 4) -> dict:
         for batch in device_prefetch(loader, device):
             # true division: x * (1/255) differs in the last ulp
             x = batch["image"].float() / 255.0
-            preds = model.predict(x, bundle.court_labels, bundle.value_step,
+            preds = model.predict(x, bundle.court_labels, bundle.value_table,
                                   consistency=consistency)
             host, event = _to_host(preds, keep, device)
             if pending is not None:

@@ -84,7 +84,7 @@ def test(args, num_data_workers: int = 8) -> dict:
     result = eval_reconstructor(model, device_prefetch(loader, device), court_template,
                                 court_poi, args.metric_img_size,
                                 use_per_sample_weights=False,
-                                court_labels=(bundle.court_labels, bundle.value_step))
+                                court_labels=(bundle.court_labels, bundle.value_table))
     sync()
     elapsed_ms = (time.perf_counter() - start) * 1000.0
 

@@ -1,6 +1,12 @@
 // K2: 3x3, pad-1, stride-1 convolution over NHWC as an implicit GEMM,
 // with bias and an optional per-channel BN+ReLU prologue on the input.
 //
+// This is K2's f32 and edge-shape route, on the CUDA cores: float32 (the
+// parity runs, TF32 off) and channel counts that are not multiples of 64.
+// bf16 with Cin, Cin2 and Cout multiples of 64 -- every UNet conv of the
+// deconv and bilinear models -- runs on the tensor cores in
+// conv3x3_sm90.cu; ops/conv3x3.py chooses by dtype and shape.
+//
 // Replaces: sports_field_homography_tpu/ops/conv3x3_pallas.py::conv3x3
 // (forward with bias, prologue and the training-only stats epilogue, as
 // composed by ops/double_conv.py::double_conv_eval and double_conv_train;
@@ -19,8 +25,8 @@
 // 360x640, batch 8) is 2*M*9*Cin*Cout = 136 GFLOP over ~0.5 GB of bf16
 // activations, about 290 FLOP per byte: far above what the CUDA cores
 // (67 TFLOP/s f32) can use per byte of HBM bandwidth, so the limit is how
-// fast the FMAs issue.  This first version runs on the CUDA cores, not the
-// tensor cores.
+// fast the FMAs issue.  This kernel runs on the CUDA cores; the bf16
+// route's tensor-core kernel is conv3x3_sm90.cu.
 //
 // Design: GEMM rows are output pixels (M = N*H*W), columns are output
 // channels, the reduction runs over (ky, kx, cin) = 9*Cin -- the row order

@@ -1,11 +1,15 @@
-// Shared pieces of the two GEMM-shaped kernels (conv3x3.cu, deconv2x2.cu).
+// Shared pieces of the SIMT GEMM-shaped kernels (conv3x3.cu, wgrad3x3.cu,
+// deconv2x2.cu) and the dtype helpers of the elementwise kernels.
 //
-// Both run one 64x64 output tile per 256-thread block: each thread owns a
+// They run one 64x64 output tile per 256-thread block: each thread owns a
 // 4x4 micro-tile of f32 accumulators, and the block walks the reduction
 // dimension 16 deep at a time through shared memory.  Inputs are read as
 // T (float or bf16) and widened to f32 when they are staged, so one code
 // path serves both dtypes and always accumulates in f32.  This is CUDA-core
-// (SIMT) arithmetic; tensor cores (wgmma) and TMA staging are later work.
+// (SIMT) arithmetic: for K2 and K5 the f32 and edge-shape route.  Their
+// bf16 route runs on the tensor cores (wgmma) in conv3x3_sm90.cu and
+// wgrad3x3_sm90.cu, built on igemm_sm90.cuh; K3 (deconv2x2.cu) still uses
+// this tile GEMM in both dtypes.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -19,6 +19,10 @@
 // round-to-nearest intrinsics, which nvcc never contracts into an FMA, in
 // the reference's order: normalized grid -> transform_points with kornia's
 // eps -> unnormalize (align_corners=False) -> round half to even (rintf).
+// The sample's value is then looked up in a per-label f32 table that the
+// host fills with what JAX's interval table gives each label (its code
+// round(f32(label / classes) / step) times step), so a template that skips
+// a label gets the reference's value, not label * step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,7 +33,8 @@ __global__ void warp_nearest_kernel(const uint8_t* __restrict__ tmpl, int ht,
                                     int batch, int ho, int wo, int full_h,
                                     int full_w, int sampled, float x_step,
                                     float y_step, float x_ratio, float y_ratio,
-                                    float value_step, float* __restrict__ out) {
+                                    const float* __restrict__ values,
+                                    float* __restrict__ out) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t total = (int64_t)batch * ho * wo;
   if (idx >= total) return;
@@ -61,31 +66,32 @@ __global__ void warp_nearest_kernel(const uint8_t* __restrict__ tmpl, int ht,
   const float v = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(sy, 1.0f), (float)ht), 1.0f), 0.5f);
   const float iu = rintf(u);
   const float iv = rintf(v);
-  float label = 0.f;
+  float value = 0.f;
   if (iu >= 0.f && iu < (float)wt && iv >= 0.f && iv < (float)ht) {
-    label = (float)tmpl[(int64_t)iv * wt + (int64_t)iu];
+    value = values[tmpl[(int64_t)iv * wt + (int64_t)iu]];
   }
-  out[idx] = __fmul_rn(label, value_step);
+  out[idx] = value;
 }
 
 }  // namespace
 
 // tmpl (ht, wt) uint8 labels; theta (batch, 3, 3) f32; out (batch, ho, wo)
-// f32.  With sampled != 0, (ho, wo) is the sample grid and (full_h, full_w)
-// the grid it samples; otherwise full_* equal ho, wo.  x_step/y_step are
-// f32(2 / (full - 1)), x_ratio/y_ratio f32(full / sub).
+// f32; values (256,) f32, the value of each label.  With sampled != 0,
+// (ho, wo) is the sample grid and (full_h, full_w) the grid it samples;
+// otherwise full_* equal ho, wo.  x_step/y_step are f32(2 / (full - 1)),
+// x_ratio/y_ratio f32(full / sub).
 // Returns cudaGetLastError().
 extern "C" int sfh_warp_nearest(const uint8_t* tmpl, int ht, int wt,
                                 const float* theta, int batch, int ho, int wo,
                                 int full_h, int full_w, int sampled,
                                 float x_step, float y_step, float x_ratio,
-                                float y_ratio, float value_step, float* out,
+                                float y_ratio, const float* values, float* out,
                                 void* stream) {
   const int64_t total = (int64_t)batch * ho * wo;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   warp_nearest_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       tmpl, ht, wt, theta, batch, ho, wo, full_h, full_w, sampled, x_step,
-      y_step, x_ratio, y_ratio, value_step, out);
+      y_step, x_ratio, y_ratio, values, out);
   return (int)cudaGetLastError();
 }

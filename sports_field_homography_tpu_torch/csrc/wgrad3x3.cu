@@ -7,6 +7,11 @@
 // (pallas_call at :358).  The bias gradient db = sum_m dy[m, :] is a
 // column sum of dy (sum_rows.cu).
 //
+// This is K5's f32 and edge-shape route, on the CUDA cores: float32 (the
+// parity runs, TF32 off) and channel counts that are not multiples of 64.
+// bf16 with Cin and Cout multiples of 64 runs on the tensor cores in
+// wgrad3x3_sm90.cu; ops/wgrad3x3.py chooses by dtype and shape.
+//
 // What bounds it on an H100: arithmetic, and the depth of the reduction.
 // The contraction runs over M = N*H*W pixels -- 1.84 M at UNet level 1
 // with batch 8 -- while the output is only 9*Cin x Cout (576 x 64 there):

@@ -46,7 +46,8 @@ def synthetic_samples(n: int, court_img: str, court_poi: str, size=(640, 360),
     tmpl = torch.from_numpy(open_court_template(court_img, classes, size=(w, h)))
     poi = torch.from_numpy(load_court_poi(court_poi).astype(np.float32))
     thetas = torch.from_numpy(np.stack([sample_theta(rng) for _ in range(n)]))
-    labels = warp_nearest_plain(tmpl, thetas, (h, w)).numpy().astype(np.uint8)
+    identity = torch.arange(256, dtype=torch.float32)       # each label's value is itself
+    labels = warp_nearest_plain(tmpl, thetas, (h, w), identity).numpy().astype(np.uint8)
     pts = transform_poi(thetas, poi).numpy().astype(np.float64)
     ramp = np.linspace(0, 40, h, dtype=np.float32)[:, None, None]
     frames = np.stack([np.clip(_PALETTE[labels[i]] * 0.7 + 40 + ramp

@@ -138,12 +138,12 @@ class Reconstructor(nn.Module):
         return torch.cat([p.to(self.dtype) for p in parts], dim=-1)
 
     def warp(self, theta: torch.Tensor, court_labels: torch.Tensor,
-             value_step: float, sample_hw=None) -> torch.Tensor:
+             values: torch.Tensor, sample_hw=None) -> torch.Tensor:
         """Nearest warp of the court template (K1) at ``warp_size``, or at
-        its ``sample_hw`` subgrid; returns ``label * value_step`` (f32)."""
+        its ``sample_hw`` subgrid; returns each label's value in ``values``
+        (f32, ``ops/warp.template_value_table``)."""
         w, h = self.config.warp_size
-        return warp_nearest(court_labels, theta, (h, w), sample_hw=sample_hw,
-                            value_step=value_step)
+        return warp_nearest(court_labels, theta, (h, w), values, sample_hw=sample_hw)
 
     def forward(self, x: torch.Tensor, court_template: torch.Tensor,
                 court_poi: torch.Tensor, court_labels=None) -> dict:
@@ -155,8 +155,9 @@ class Reconstructor(nn.Module):
           x: (B, H, W, 3) float32 frames in [0, 1].
           court_template: (Ht, Wt) float32 court labels / mask_classes.
           court_poi: (N, 2) court points of interest in [-1, 1].
-          court_labels: (uint8 (Ht, Wt) labels, value step) of the same
-            template; the nearest warp (``warp_with_nearest``) reads them.
+          court_labels: (uint8 (Ht, Wt) labels, (256,) f32 label values) of
+            the same template; the nearest warp (``warp_with_nearest``)
+            reads them.
         Returns:
           dict with ``logits`` (NHWC, compute dtype), ``theta`` (B, 1, 3, 3)
           f32, ``poi`` (B, N, 2) in [0, 1] and ``warp_mask`` (B, h, w) f32,
@@ -186,13 +187,13 @@ class Reconstructor(nn.Module):
         return ret
 
     def predict(self, x: torch.Tensor, court_labels: Optional[torch.Tensor] = None,
-                value_step: float = 1.0, consistency: bool = True) -> dict:
+                values: Optional[torch.Tensor] = None, consistency: bool = True) -> dict:
         """Inference forward.
 
         Args:
           x: (B, H, W, 3) float32 frames in [0, 1].
-          court_labels, value_step: the court template and its value step
-            (``ops/warp.template_value_step``); needed for the warp.
+          court_labels, values: the court template and its per-label values
+            (``ops/warp.template_value_table``); needed for the warp.
           consistency: return ``consist_score``, the per-frame mean
             per-pixel cross entropy of the logits against the warped labels.
         Returns:
@@ -215,7 +216,7 @@ class Reconstructor(nn.Module):
             w, h = cfg.warp_size
             grid = tuple(logits.shape[1:3])
             sample = None if grid == (h, w) else grid
-            wm = self.warp(theta, court_labels, value_step, sample_hw=sample)
+            wm = self.warp(theta, court_labels, values, sample_hw=sample)
             labels = (wm * cfg.mask_classes).to(torch.int32)
             ret["consist_score"] = cross_entropy_map(logits, labels).mean(dim=(1, 2))
         return ret

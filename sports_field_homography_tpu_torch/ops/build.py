@@ -38,8 +38,10 @@ _F = ctypes.c_float
 # C signatures: name -> argtypes (every function returns an int error code)
 _SIGNATURES = {
     "sfh_warp_nearest": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _P, _P],
+                         _F, _F, _F, _F, _P, _P, _P],
     "sfh_conv3x3": [_P] * 10 + [_I] * 7 + [_P],
+    "sfh_conv3x3_sm90": [_P] * 10 + [_I] * 6 + [_P],
+    "sfh_wgrad3x3_sm90": [_P] * 3 + [_I] * 7 + [_P],
     "sfh_deconv2x2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sfh_deconv2x2_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sfh_wgrad3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

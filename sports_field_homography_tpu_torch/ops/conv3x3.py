@@ -1,9 +1,15 @@
 """K2: 3x3, pad-1 convolution over NHWC, with bias, an optional BN+ReLU
 prologue on the input and an optional stats epilogue on the output.
 
-Port of ``ops/conv3x3_pallas.py::conv3x3``.  The CUDA kernel is
-``csrc/conv3x3.cu``: an implicit GEMM with f32 accumulation and one
-rounding of ``conv + bias`` to the input dtype.  With ``stats=True`` it
+Port of ``ops/conv3x3_pallas.py::conv3x3``.  Two CUDA kernels, both an
+implicit GEMM with f32 accumulation and one rounding of ``conv + bias`` to
+the input dtype, chosen explicitly by dtype and shape
+(``tensor_core_route``): bf16 with Cin, Cin2 and Cout multiples of 64 --
+every UNet conv of the deconv and bilinear models -- runs
+``csrc/conv3x3_sm90.cu`` on the tensor cores (wgmma) with the weights
+packed K-major (``pack_weights``); f32 and other channel counts run
+``csrc/conv3x3.cu`` on the CUDA cores.  A tensor-core launch that fails
+raises; it is never handed to the other kernel.  With ``stats=True`` it
 also returns the (2, Cout) f32 sums ``[sum(y), sum(y*y)]`` over N*H*W,
 taken on the f32 accumulator after the bias and before the rounding
 (the BatchNorm batch statistics of the training DoubleConv); the block
@@ -36,9 +42,12 @@ from . import _dispatch
 from .build import check, load_library
 from .reduce import column_sums
 
-__all__ = ["conv3x3", "conv3x3_plain", "apply_prologue", "dgrad_weights"]
+__all__ = ["conv3x3", "conv3x3_plain", "apply_prologue", "dgrad_weights",
+           "pack_weights", "tensor_core_route", "aligned"]
 
 _ROWS_PER_BLOCK = 64         # kBM in csrc/tile_gemm.cuh
+_TC_ROWS_PER_BLOCK = 128     # kBM in csrc/conv3x3_sm90.cu
+_TC_CHANNELS = 64            # the tensor-core kernels' channel block
 
 
 def dgrad_weights(w: torch.Tensor) -> torch.Tensor:
@@ -46,6 +55,29 @@ def dgrad_weights(w: torch.Tensor) -> torch.Tensor:
     conv3x3 over the cotangent is the input gradient,
     dx[p] = sum_k dy[p + 1 - k] W[k] (``conv3x3_pallas.dgrad_weights``)."""
     return w.flip(0, 1).transpose(2, 3)
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Cout) HWIO -> (Cout, 9*Cin) K-major: row co holds
+    W[ky, kx, ci, co] at column (ky*3 + kx)*Cin + ci, the transpose of the
+    SIMT kernel's row-major (9*Cin, Cout) matrix (the tensor-core kernel's
+    B operand, 64 reduction values per 128-byte row)."""
+    return w.permute(3, 0, 1, 2).reshape(w.shape[3], -1).contiguous()
+
+
+def tensor_core_route(dtype: torch.dtype, cin: int, cin2: int, cout: int) -> bool:
+    """True for the shapes ``csrc/conv3x3_sm90.cu`` takes: bf16, Cin, Cin2
+    (0 without a second input) and Cout multiples of 64."""
+    c = _TC_CHANNELS
+    return (dtype == torch.bfloat16 and cin > 0 and cout > 0
+            and cin % c == 0 and cin2 % c == 0 and cout % c == 0)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the cp.async gathers read it
+    (a copy only for a view that starts off the 16-byte grid)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def apply_prologue(x: torch.Tensor, prologue) -> torch.Tensor:
@@ -137,11 +169,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     n, h, wd, cin = x.shape
     _dispatch.check_pixels(n, h, wd)
     cout = w.shape[-1]
-    x = x.contiguous()
-    wmat = w.to(x.dtype).contiguous()            # (9*Cin, Cout) row-major
     cin2 = 0 if x2 is None else x2.shape[-1]
-    if x2 is not None:     # each input's slice of the weights packed on its own
-        x2, w2 = x2.contiguous(), w2.to(x.dtype).contiguous()
+    tc = tensor_core_route(x.dtype, cin, cin2, cout)
     b = bias.float().contiguous() if bias is not None else None
     pro = ([t.float().contiguous() for t in prologue]
            if prologue is not None else [None, None, None])
@@ -150,16 +179,32 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     if y.numel() == 0:
         zeros = torch.zeros((2, cout), dtype=torch.float32, device=x.device)
         return (y, zeros) if stats else y
-    part = (torch.empty((-(-m // _ROWS_PER_BLOCK), 2 * cout), dtype=torch.float32,
+    rows = _TC_ROWS_PER_BLOCK if tc else _ROWS_PER_BLOCK
+    part = (torch.empty((-(-m // rows), 2 * cout), dtype=torch.float32,
                         device=x.device) if stats else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = load_library()
     with torch.cuda.device(x.device):
-        code = load_library().sfh_conv3x3(
-            x.data_ptr(), wmat.data_ptr(), ptr(x2), ptr(w2), ptr(b), ptr(pro[0]),
-            ptr(pro[1]), ptr(pro[2]), y.data_ptr(), ptr(part), n, h, wd, cin, cin2,
-            cout, code_dt, _dispatch.stream_handle(x.device))
-    check(code, "conv3x3")
+        if tc:
+            x, wk = aligned(x), aligned(pack_weights(w.to(x.dtype)))
+            if x2 is not None:
+                x2, w2 = aligned(x2), aligned(pack_weights(w2.to(x.dtype)))
+            code = lib.sfh_conv3x3_sm90(
+                x.data_ptr(), wk.data_ptr(), ptr(x2), ptr(w2), ptr(b), ptr(pro[0]),
+                ptr(pro[1]), ptr(pro[2]), y.data_ptr(), ptr(part), n, h, wd, cin, cin2,
+                cout, _dispatch.stream_handle(x.device))
+        else:
+            x, wmat = x.contiguous(), w.to(x.dtype).contiguous()   # (9*Cin, Cout)
+            if x2 is not None:   # each input's slice of the weights packed on its own
+                x2, w2 = x2.contiguous(), w2.to(x.dtype).contiguous()
+            code = lib.sfh_conv3x3(
+                x.data_ptr(), wmat.data_ptr(), ptr(x2), ptr(w2), ptr(b), ptr(pro[0]),
+                ptr(pro[1]), ptr(pro[2]), y.data_ptr(), ptr(part), n, h, wd, cin, cin2,
+                cout, code_dt, _dispatch.stream_handle(x.device))
+    check(code, "conv3x3 (tensor cores)" if tc else "conv3x3")
     conv3x3.launches += 1
+    if tc:
+        conv3x3.tc_launches += 1
     if x2 is not None:
         conv3x3.dual_launches += 1
     if not stats:
@@ -169,5 +214,6 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
 
 
 conv3x3.launches = 0
+conv3x3.tc_launches = 0       # the subset of launches on the tensor-core kernel
 conv3x3.stats_launches = 0    # the subset of launches with the stats epilogue
 conv3x3.dual_launches = 0     # the subset of launches with a second input

@@ -32,18 +32,20 @@ def rows_per_block(m: int) -> int:
     return max(_MIN_ROWS_PER_BLOCK, -(-m // _MAX_CHUNKS))
 
 
-def split_reduction(m: int, rows: int, cols: int):
+def split_reduction(m: int, rows: int, cols: int, stage: int = _STAGE,
+                    tile_cols: int = _TILE):
     """(m_chunk, splits) for a weight-gradient GEMM whose (rows, cols)
-    output sums over m pixels: enough splits to fill the card, and at most
-    _MAX_CHUNK pixels summed in sequence by one block (an f32 running sum
-    over n terms drifts like sqrt(n) ulps), within the partials' memory
-    cap.  m_chunk is a multiple of the 16-pixel stage."""
-    tiles = -(-rows // _TILE) * -(-cols // _TILE)
+    output sums over m pixels in (64, tile_cols) tiles, ``stage`` pixels a
+    step: enough splits to fill the card, and at most _MAX_CHUNK pixels
+    summed in sequence by one block (an f32 running sum over n terms drifts
+    like sqrt(n) ulps), within the partials' memory cap.  m_chunk is a
+    multiple of ``stage``."""
+    tiles = -(-rows // _TILE) * -(-cols // tile_cols)
     splits = max(-(-_TARGET_BLOCKS // tiles), -(-m // _MAX_CHUNK))
     splits = max(1, min(splits, _MAX_PARTIAL_BYTES // (4 * rows * cols),
-                        -(-m // _STAGE), _MAX_CHUNKS))
+                        -(-m // stage), _MAX_CHUNKS))
     chunk = -(-m // splits)
-    chunk = -(-chunk // _STAGE) * _STAGE
+    chunk = -(-chunk // stage) * stage
     return chunk, -(-m // chunk)
 
 

@@ -4,10 +4,11 @@
 warp_nearest_interval_pallas`` and of its XLA twin
 ``ops/interval_warp.py::warp_nearest_interval``: for every output pixel
 (or every ``sample_hw`` sample) it maps the normalized frame point through
-theta, rounds to the nearest template pixel and returns
-``label * value_step``, or 0 outside the template.  The CUDA kernel is
-``csrc/warp_nearest.cu``; the plain version below computes the same
-coordinates with the same rounding, so the two agree label for label.
+theta, rounds to the nearest template pixel and returns that label's value
+in a per-label f32 table (``template_value_table``: the value JAX's
+interval table gives the label), or 0 outside the template.  The CUDA
+kernel is ``csrc/warp_nearest.cu``; the plain version below computes the
+same coordinates with the same rounding, so the two agree label for label.
 """
 from __future__ import annotations
 
@@ -18,21 +19,41 @@ from ..geometry.warp import _unnormalize, subsampled_warp_grid, warp_grid
 from . import _dispatch
 from .build import check, load_library
 
-__all__ = ["warp_nearest", "warp_nearest_plain", "template_value_step"]
+__all__ = ["warp_nearest", "warp_nearest_plain", "template_value_step",
+           "template_value_table"]
+
+_LABELS = 256          # uint8 labels
 
 
 def template_value_step(labels: np.ndarray, num_classes: int) -> float:
     """The value spacing of the float template ``labels / num_classes``:
     the smallest positive gap between its distinct values, in float32, as
-    ``ops/interval_warp.build_interval_table`` chooses it.  The warp's
-    output times ``num_classes`` is then the label again."""
+    ``ops/interval_warp.build_interval_table`` chooses it: the unit of
+    the codes ``template_value_table`` multiplies back."""
     vals = np.unique(np.asarray(labels)).astype(np.float32) / float(num_classes)
     diffs = np.diff(np.unique(vals))
     step = diffs[diffs > 0].min() if (diffs > 0).any() else 1.0
     return float(np.float32(step))
 
 
-def _check_args(template_labels, theta):
+def template_value_table(labels: np.ndarray, num_classes: int) -> torch.Tensor:
+    """(256,) float32: the value the warp returns for each uint8 label, as
+    ``ops/interval_warp.build_interval_table`` stores it for the float
+    template ``labels / num_classes``: the code
+    ``round(f32(label / num_classes) / step)`` times ``step``, in float32.
+    For a template whose labels are evenly spaced from 0 (the NCAA court's
+    0..3) that is ``label * step``; for one that skips a label it is not
+    (labels {0, 2} of 4 classes: step 0.5, and label 2 gives 0.5)."""
+    step = np.float32(template_value_step(labels, num_classes))
+    vals = np.arange(_LABELS, dtype=np.float32) / float(num_classes)
+    codes = np.round(vals / step)
+    return torch.from_numpy((codes * step).astype(np.float32))
+
+
+def _check_args(template_labels, theta, values):
+    if values.dtype != torch.float32 or tuple(values.shape) != (_LABELS,):
+        raise TypeError(f"values must be a ({_LABELS},) float32 table, got "
+                        f"{values.dtype} {tuple(values.shape)}")
     if template_labels.dtype != torch.uint8 or template_labels.dim() != 2:
         raise TypeError("template_labels must be a (Ht, Wt) uint8 tensor, got "
                         f"{template_labels.dtype} {tuple(template_labels.shape)}")
@@ -45,10 +66,9 @@ def _check_args(template_labels, theta):
 
 
 def warp_nearest_plain(template_labels: torch.Tensor, theta: torch.Tensor,
-                       out_hw, sample_hw=None,
-                       value_step: float = 1.0) -> torch.Tensor:
-    """Plain PyTorch nearest warp: index arithmetic plus a gather."""
-    theta = _check_args(template_labels, theta)
+                       out_hw, values: torch.Tensor, sample_hw=None) -> torch.Tensor:
+    """Plain PyTorch nearest warp: index arithmetic plus two gathers."""
+    theta = _check_args(template_labels, theta, values)
     ht, wt = template_labels.shape
     if sample_hw is not None:
         grid = subsampled_warp_grid(theta, out_hw, sample_hw)
@@ -60,12 +80,12 @@ def warp_nearest_plain(template_labels: torch.Tensor, theta: torch.Tensor,
     zero = torch.zeros_like(iu)
     lin = (torch.where(valid, iv, zero).long() * wt
            + torch.where(valid, iu, zero).long())
-    labels = template_labels.reshape(-1)[lin].float()
-    return torch.where(valid, labels * value_step, zero)
+    labels = template_labels.reshape(-1)[lin].long()
+    return torch.where(valid, values[labels], zero)
 
 
 def warp_nearest(template_labels: torch.Tensor, theta: torch.Tensor, out_hw,
-                 sample_hw=None, value_step: float = 1.0) -> torch.Tensor:
+                 values: torch.Tensor, sample_hw=None) -> torch.Tensor:
     """Nearest homography warp of a uint8 label template.
 
     Args:
@@ -73,18 +93,18 @@ def warp_nearest(template_labels: torch.Tensor, theta: torch.Tensor, out_hw,
       theta: (B, 3, 3) or (B, 1, 3, 3) frame -> court homographies; used in
         float32 whatever the model's compute dtype.
       out_hw: (Ho, Wo) output grid.
+      values: (256,) float32 value of each label (``template_value_table``).
       sample_hw: optional (Hs, Ws): evaluate only the nearest-resize sample
         points of the out_hw grid, which equals warping at out_hw and then
         nearest-resizing to sample_hw.
-      value_step: the output is ``label * value_step`` (f32).
     Returns:
       (B, Ho, Wo) or (B, Hs, Ws) float32, zero outside the template.
     """
-    if _dispatch.on_cpu(template_labels, theta):
-        return warp_nearest_plain(template_labels, theta, out_hw, sample_hw,
-                                  value_step)
-    theta = _check_args(template_labels, theta).contiguous()
+    if _dispatch.on_cpu(template_labels, theta, values):
+        return warp_nearest_plain(template_labels, theta, out_hw, values, sample_hw)
+    theta = _check_args(template_labels, theta, values).contiguous()
     tmpl = template_labels.contiguous()
+    values = values.contiguous()
     ht, wt = tmpl.shape
     full_h, full_w = out_hw
     ho, wo = sample_hw if sample_hw is not None else out_hw
@@ -98,7 +118,7 @@ def warp_nearest(template_labels: torch.Tensor, theta: torch.Tensor, out_hw,
             tmpl.data_ptr(), ht, wt, theta.data_ptr(), b, ho, wo, full_h,
             full_w, int(sample_hw is not None), f32(2.0 / (full_w - 1)),
             f32(2.0 / (full_h - 1)), f32(full_w / wo), f32(full_h / ho),
-            f32(value_step), out.data_ptr(), _dispatch.stream_handle(out.device))
+            values.data_ptr(), out.data_ptr(), _dispatch.stream_handle(out.device))
     check(code, "warp_nearest")
     warp_nearest.launches += 1
     return out

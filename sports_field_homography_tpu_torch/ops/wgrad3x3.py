@@ -6,9 +6,17 @@ Port of ``ops/conv3x3_pallas.py::wgrad3x3``:
 prologue, ``relu((x - mean) * inv + beta)`` recomputed from the saved
 pre-BN input (padding cells stay zero).
 
-The CUDA kernel is ``csrc/wgrad3x3.cu``: a tile GEMM whose pixel reduction
-is split over blocks into f32 partials, added in a fixed order by
-``ops/reduce.column_sums`` (deterministic, no float atomics); db is a
+Two CUDA kernels, each a GEMM whose pixel reduction is split over blocks
+into f32 partials, added in a fixed order by ``ops/reduce.column_sums``
+(deterministic, no float atomics), chosen explicitly by dtype and shape
+(``tensor_core_route``): bf16 with Cin and Cout multiples of 64 -- every
+UNet conv of the deconv and bilinear models -- runs
+``csrc/wgrad3x3_sm90.cu`` on the tensor cores (wgmma) as a pure implicit
+GEMM -- with a prologue, ``z`` is materialised first by K7-fwd's norm
+(``ops/bn_relu.bn_relu_norm``, the same rounding as the plain version's
+``apply_prologue``); f32 and other channel counts run
+``csrc/wgrad3x3.cu`` on the CUDA cores, the prologue recomputed as each
+element is staged.  A tensor-core launch that fails raises.  db is a
 column sum of dy.  The plain version is ``torch.nn.grad.conv2d_weight``
 (cuDNN on the card) in f32 on the (bf16-valued) inputs, which is what the
 kernel accumulates.
@@ -21,10 +29,20 @@ import torch
 
 from . import _dispatch
 from .build import check, load_library
-from .conv3x3 import apply_prologue
+from .bn_relu import bn_relu_norm
+from .conv3x3 import aligned, apply_prologue
 from .reduce import column_sums, split_reduction
 
-__all__ = ["wgrad3x3", "wgrad3x3_plain"]
+__all__ = ["wgrad3x3", "wgrad3x3_plain", "tensor_core_route"]
+
+_TC_STEP = 64          # pixels per K step of csrc/wgrad3x3_sm90.cu
+
+
+def tensor_core_route(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """True for the shapes ``csrc/wgrad3x3_sm90.cu`` takes: bf16, Cin and
+    Cout multiples of 64."""
+    return (dtype == torch.bfloat16 and cin > 0 and cout > 0
+            and cin % 64 == 0 and cout % 64 == 0)
 
 
 def _check(x, dy):
@@ -73,23 +91,39 @@ def wgrad3x3(x: torch.Tensor, dy: torch.Tensor,
     if m == 0:
         zeros = torch.zeros((3, 3, cin, cout), dtype=torch.float32, device=x.device)
         return zeros, torch.zeros(cout, dtype=torch.float32, device=x.device)
-    x = x.contiguous()
-    dy = dy.contiguous()
     pro = ([t.float().contiguous() for t in prologue]
            if prologue is not None else [None, None, None])
-    chunk, splits = split_reduction(m, k, cout)
-    part = torch.empty((splits, k * cout), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    tc = tensor_core_route(x.dtype, cin, cout)
+    lib = load_library()
+    if tc:
+        if prologue is not None:     # z once, then a pure implicit GEMM
+            x = bn_relu_norm(x, *pro)
+        x, dy = aligned(x), aligned(dy)
+        chunk, splits = split_reduction(m, k, cout, stage=_TC_STEP,
+                                        tile_cols=128 if cout % 128 == 0 else 64)
+    else:
+        x, dy = x.contiguous(), dy.contiguous()
+        chunk, splits = split_reduction(m, k, cout)
+    part = torch.empty((splits, k * cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        code = load_library().sfh_wgrad3x3(
-            x.data_ptr(), dy.data_ptr(), ptr(pro[0]), ptr(pro[1]), ptr(pro[2]),
-            part.data_ptr(), n, h, wd, cin, cout, chunk, splits, code_dt,
-            _dispatch.stream_handle(x.device))
-    check(code, "wgrad3x3")
+        if tc:
+            code = lib.sfh_wgrad3x3_sm90(
+                x.data_ptr(), dy.data_ptr(), part.data_ptr(), n, h, wd, cin, cout, chunk,
+                splits, _dispatch.stream_handle(x.device))
+        else:
+            code = lib.sfh_wgrad3x3(
+                x.data_ptr(), dy.data_ptr(), ptr(pro[0]), ptr(pro[1]), ptr(pro[2]),
+                part.data_ptr(), n, h, wd, cin, cout, chunk, splits, code_dt,
+                _dispatch.stream_handle(x.device))
+    check(code, "wgrad3x3 (tensor cores)" if tc else "wgrad3x3")
     wgrad3x3.launches += 1
+    if tc:
+        wgrad3x3.tc_launches += 1
     dw = part[0] if splits == 1 else column_sums(part)
     db = column_sums(dy.view(m, cout))
     return dw.view(3, 3, cin, cout), db
 
 
 wgrad3x3.launches = 0
+wgrad3x3.tc_launches = 0      # the subset of launches on the tensor-core kernel

@@ -43,7 +43,7 @@ from sports_field_homography_tpu_torch.compat.jax_params import state_dict_from_
 from sports_field_homography_tpu_torch.data.assets import open_court_template
 from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
 from sports_field_homography_tpu_torch.ops.fold_bn import fold_batchnorm
-from sports_field_homography_tpu_torch.ops.warp import template_value_step
+from sports_field_homography_tpu_torch.ops.warp import template_value_table
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COURT = os.path.join(REPO, "assets", "mask_ncaa_v4_nc4_m_onehot.png")
@@ -87,7 +87,7 @@ def predict_setup():
                 variables=_random_variables(jmodel, court, poi, 11),
                 x=np.random.default_rng(12).uniform(0, 1, (2, H, W, 3)).astype(np.float32),
                 table=build_interval_table(court), labels=labels,
-                step=template_value_step(labels, 4))
+                values=template_value_table(labels, 4))
 
 
 def test_bilinear_tree_loads_strict(predict_setup):
@@ -119,7 +119,7 @@ def test_bilinear_predict_matches_jax(predict_setup, folded):
         fold_batchnorm(model)
     with torch.inference_mode():
         got = model.eval().predict(torch.from_numpy(s["x"]), torch.from_numpy(s["labels"]),
-                                   s["step"])
+                                   s["values"])
     assert np.abs(np.asarray(want["theta"])[0] - np.asarray(want["theta"])[1]).max() > 1e-3
     np.testing.assert_allclose(got["theta"].numpy(), np.asarray(want["theta"]), rtol=0,
                                atol=2e-4)
@@ -143,7 +143,7 @@ def test_nearest_forward_warps_with_k1(predict_setup):
     tmpl = torch.from_numpy(s["labels"]).float() / 4
     with torch.no_grad():
         got = model.eval()(torch.from_numpy(s["x"]), tmpl, torch.from_numpy(s["poi"][0]),
-                           (torch.from_numpy(s["labels"]), s["step"]))
+                           (torch.from_numpy(s["labels"]), s["values"]))
         with pytest.raises(ValueError, match="court_labels"):
             model(torch.from_numpy(s["x"]), tmpl, torch.from_numpy(s["poi"][0]))
     assert got["warp_mask"].shape == (2, COURT_SIZE[1], COURT_SIZE[0])

@@ -3,7 +3,10 @@ the main paths do not reach (ragged tiles, shallow or odd channel counts,
 1x1 images, odd sizes, degenerate homographies, strided inputs, side
 streams), and the bitwise repeatability of the training kernels'
 reductions (f32 reductions against the plain version in float64, rel-L2
-1e-5; bf16 against the plain version on the same inputs, 1e-3).
+1e-5; bf16 against the plain version on the same inputs, 1e-3).  K2 and
+K5 are checked on both routes: the SIMT kernels (f32, odd channel counts)
+and the tensor-core kernels (bf16, channels in multiples of 64), each
+call's route read from the launch counters.
 
 Marked ``cuda``: each test skips without a CUDA device.  On a GPU box
 (which need not have JAX)::
@@ -86,8 +89,9 @@ def test_warp_labels_equal(dev, tmpl_hw, out_hw, sample_hw):
     theta[1:] += _rand(gen, (4, 3, 3), dev, 0.1)
     theta[3, 2] = torch.tensor([0.0, 0.0, -1e-9], device=dev)   # |z| <= eps: unscaled
     theta[4] = 0.0                                              # all points map to 0
-    got = warp_nearest(labels, theta, out_hw, sample_hw, value_step=0.25)
-    ref = warp_nearest_plain(labels, theta, out_hw, sample_hw, value_step=0.25)
+    values = torch.arange(256, dtype=torch.float32, device=dev) * 0.25
+    got = warp_nearest(labels, theta, out_hw, values, sample_hw)
+    ref = warp_nearest_plain(labels, theta, out_hw, values, sample_hw)
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
@@ -452,3 +456,159 @@ def test_fwd_kernel_counters_and_refusals(dev):
     big = torch.rand(1, 1, 1, 4097, device=dev)
     with pytest.raises(ValueError, match="at most"):
         bn_relu_norm(big, *(torch.ones(4097, device=dev),) * 3)
+
+
+# ---- K2 and K5 on the tensor cores (bf16, channel counts multiples of 64) ----
+
+def _routed(kernel, tc, fn):
+    """fn() launches ``kernel``; every launch on the tensor-core route when
+    ``tc``, none otherwise."""
+    n0, t0 = kernel.launches, kernel.tc_launches
+    out = fn()
+    n, t = kernel.launches - n0, kernel.tc_launches - t0
+    assert n > 0 and t == (n if tc else 0), (n, t)
+    return out
+
+
+@pytest.mark.parametrize("n,h,w,ca,cb,cout,prologue", [
+    (2, 33, 65, 64, 0, 64, True),       # ragged M
+    (2, 22, 40, 512, 0, 512, False),    # the 22x40 level, BN = 128 tiles
+    (3, 1, 1, 1024, 0, 64, True),       # 1x1 images: every tap but the centre is padding
+    (1, 7, 9, 64, 0, 192, False),       # Cout over a 128 and a 64 multiple (BN = 64)
+    (2, 33, 65, 64, 128, 64, True),     # two inputs, Ca != Cb, prologue on x only
+    (1, 22, 40, 512, 64, 512, False),   # two inputs, the deep level
+])
+def test_conv3x3_tensor_core_edges(dev, n, h, w, ca, cb, cout, prologue):
+    gen = torch.Generator(device=dev).manual_seed(30)
+    x = _rand(gen, (n, h, w, ca), dev).bfloat16()
+    x2 = _rand(gen, (n, h, w, cb), dev).bfloat16() if cb else None
+    wt = _rand(gen, (3, 3, ca, cout), dev, 1.0 / (3 * (ca + cb) ** 0.5)).bfloat16()
+    w2 = _rand(gen, (3, 3, cb, cout), dev, 1.0 / (3 * (ca + cb) ** 0.5)).bfloat16() if cb else None
+    bias = _rand(gen, (cout,), dev, 0.1)
+    pro = ((_rand(gen, (ca,), dev, 0.1), torch.rand(ca, generator=gen, device=dev) + 0.5,
+            _rand(gen, (ca,), dev, 0.1)) if prologue else None)
+    y, s = _routed(conv3x3, True, lambda: _repeat(
+        lambda: conv3x3(x, wt, bias, pro, stats=True, x2=x2, w2=w2)))
+    y_ref, s_ref = conv3x3_plain(x, wt, bias, pro, stats=True, x2=x2, w2=w2)
+    assert y.dtype == torch.bfloat16 and y.shape == (n, h, w, cout)
+    _close(y, y_ref, torch.bfloat16)
+    assert _rel_l2(s, s_ref) <= _RED_TOL[torch.bfloat16]
+    _close(_routed(conv3x3, True, lambda: conv3x3(x, wt, bias, pro, x2=x2, w2=w2)), y_ref,
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 33, 65, 128, 64), (2, 45, 80, 1024, 512),
+                                            (3, 1, 1, 64, 512)])
+def test_conv3x3_tensor_core_dgrad(dev, n, h, w, cin, cout):
+    """The dgrad: K2 over the cotangent with dgrad_weights (a flipped,
+    transposed view), no bias, on the tensor cores."""
+    from sports_field_homography_tpu_torch.ops.conv3x3 import dgrad_weights
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    dy = _rand(gen, (n, h, w, cin), dev).bfloat16()
+    wd = dgrad_weights(_rand(gen, (3, 3, cout, cin), dev, 1.0 / (3 * cin ** 0.5)).bfloat16())
+    got = _routed(conv3x3, True, lambda: conv3x3(dy, wd))
+    _close(got, conv3x3_plain(dy, wd), torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,prologue", [
+    (2, 33, 65, 64, 64, True), (2, 22, 40, 512, 512, False), (3, 1, 1, 1024, 64, True),
+    (1, 45, 80, 64, 512, False), (1, 7, 9, 128, 192, True)])
+def test_wgrad3x3_tensor_core_edges(dev, n, h, w, cin, cout, prologue):
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3, wgrad3x3_plain
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    x = _rand(gen, (n, h, w, cin), dev).bfloat16()
+    dy = _rand(gen, (n, h, w, cout), dev).bfloat16()
+    pro = ((_rand(gen, (cin,), dev, 0.1), torch.rand(cin, generator=gen, device=dev) + 0.5,
+            _rand(gen, (cin,), dev, 0.1)) if prologue else None)
+    dw, db = _routed(wgrad3x3, True, lambda: _repeat(lambda: wgrad3x3(x, dy, pro)))
+    dw_ref, db_ref = wgrad3x3_plain(x, dy, pro)
+    assert dw.shape == (3, 3, cin, cout) and dw.dtype == torch.float32
+    assert _rel_l2(dw, dw_ref) <= _RED_TOL[torch.bfloat16]
+    assert _rel_l2(db, db_ref) <= _RED_TOL[torch.bfloat16]
+
+
+def test_tensor_core_skip_after_odd_pad_two_input(dev):
+    """The decoder's 45x80 skip after the odd pad (a 22x40 input up-sampled
+    to 44x80, padded by one row) through the two-input conv with stats and
+    both wgrads, bf16 on the tensor cores."""
+    import torch.nn.functional as F
+
+    from sports_field_homography_tpu_torch.ops.resize import upsample2x_bilinear
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3, wgrad3x3_plain
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    skip = _rand(gen, (2, 45, 80, 64), dev).bfloat16()
+    up = F.pad(upsample2x_bilinear(_rand(gen, (2, 22, 40, 128), dev).bfloat16()),
+               (0, 0, 0, 0, 0, 1))
+    wa = _rand(gen, (3, 3, 64, 64), dev, 0.03).bfloat16()
+    wb = _rand(gen, (3, 3, 128, 64), dev, 0.03).bfloat16()
+    bias = _rand(gen, (64,), dev, 0.1)
+    y, s = _routed(conv3x3, True, lambda: conv3x3(skip, wa, bias, stats=True, x2=up, w2=wb))
+    y_ref, s_ref = conv3x3_plain(skip, wa, bias, stats=True, x2=up, w2=wb)
+    _close(y, y_ref, torch.bfloat16)
+    assert _rel_l2(s, s_ref) <= _RED_TOL[torch.bfloat16]
+    for inp in (skip, up):
+        dw, _ = _routed(wgrad3x3, True, lambda: wgrad3x3(inp, y))
+        assert _rel_l2(dw, wgrad3x3_plain(inp, y)[0]) <= _RED_TOL[torch.bfloat16]
+
+
+def test_tensor_core_strided_inputs_and_side_stream(dev):
+    """Non-contiguous bf16 inputs (an NCHW tensor's NHWC view, a channel
+    slice off the 16-byte grid) are made contiguous and aligned; the
+    tensor-core launches go on the current stream."""
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3, wgrad3x3_plain
+
+    gen = torch.Generator(device=dev).manual_seed(34)
+    x = _rand(gen, (2, 64, 9, 11), dev).bfloat16().permute(0, 2, 3, 1)      # (2, 9, 11, 64)
+    dy = _rand(gen, (2, 9, 11, 131), dev).bfloat16()[..., 3:131]              # (2, 9, 11, 128)
+    wt = _rand(gen, (3, 3, 64, 128), dev, 0.05).bfloat16()
+    b = _rand(gen, (128,), dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = _routed(conv3x3, True, lambda: conv3x3(x, wt, b))
+        dw, db = _routed(wgrad3x3, True, lambda: wgrad3x3(x, dy))
+    torch.cuda.current_stream().wait_stream(side)
+    xc, dyc = x.contiguous(), dy.contiguous()
+    _close(y, conv3x3_plain(xc, wt, b), torch.bfloat16)
+    dw_ref, db_ref = wgrad3x3_plain(xc, dyc)
+    assert _rel_l2(dw, dw_ref) <= 1e-3 and _rel_l2(db, db_ref) <= 1e-3
+
+
+def test_route_counters(dev):
+    """bf16 with channels in multiples of 64 counts a tensor-core launch; an
+    odd channel count in bf16 and every f32 call do not."""
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3
+
+    gen = torch.Generator(device=dev).manual_seed(35)
+    x64, x48 = _rand(gen, (1, 5, 6, 64), dev), _rand(gen, (1, 5, 6, 48), dev)
+    w64, w48 = _rand(gen, (3, 3, 64, 64), dev, 0.05), _rand(gen, (3, 3, 48, 64), dev, 0.05)
+    _routed(conv3x3, True, lambda: conv3x3(x64.bfloat16(), w64))
+    _routed(conv3x3, False, lambda: conv3x3(x64, w64))
+    _routed(conv3x3, False, lambda: conv3x3(x48.bfloat16(), w48))
+    _routed(conv3x3, False, lambda: conv3x3(x64.bfloat16(), w64, x2=x48.bfloat16(), w2=w48))
+    dy = _rand(gen, (1, 5, 6, 64), dev)
+    _routed(wgrad3x3, True, lambda: wgrad3x3(x64.bfloat16(), dy.bfloat16()))
+    _routed(wgrad3x3, False, lambda: wgrad3x3(x64, dy))
+    _routed(wgrad3x3, False, lambda: wgrad3x3(x48.bfloat16(), dy.bfloat16()))
+
+
+@pytest.mark.parametrize("sample_hw", [None, (18, 32)])
+def test_warp_gap_template(dev, sample_hw):
+    """K1 on a template that skips a label ({0, 2} of 4 classes): equal to
+    the plain version bit for bit, label 2 worth the interval table's 0.5."""
+    from sports_field_homography_tpu_torch.ops.warp import template_value_table
+
+    gen = torch.Generator(device=dev).manual_seed(36)
+    labels = np.zeros((36, 64), np.uint8)
+    labels[5:31, 8:56] = 2
+    values = template_value_table(labels, 4).to(dev)
+    theta = torch.eye(3, device=dev).repeat(4, 1, 1)
+    theta[1:] += _rand(gen, (3, 3, 3), dev, 0.05)
+    tmpl = torch.from_numpy(labels).to(dev)
+    got = warp_nearest(tmpl, theta, (36, 64), values, sample_hw)
+    ref = warp_nearest_plain(tmpl, theta, (36, 64), values, sample_hw)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert float(got.max()) == 0.5

@@ -95,12 +95,16 @@ def test_resize_nearest_pil_rgb():
 
 def test_cpu_tensors_take_the_plain_versions():
     """On the CPU the wrappers run their plain versions: no launch counted."""
-    before = (warp_nearest.launches, conv3x3.launches, deconv2x2.launches)
-    x = torch.rand(1, 4, 4, 8)
-    conv3x3(x, torch.rand(3, 3, 8, 8))
-    deconv2x2(x, torch.rand(8, 2, 2, 4), torch.rand(4))
-    warp_nearest(torch.zeros(4, 4, dtype=torch.uint8), torch.eye(3)[None], (4, 4))
-    assert (warp_nearest.launches, conv3x3.launches, deconv2x2.launches) == before
+    counts = lambda: (warp_nearest.launches, conv3x3.launches, conv3x3.tc_launches,  # noqa: E731
+                      deconv2x2.launches)
+    before = counts()
+    x = torch.rand(1, 4, 4, 64)
+    conv3x3(x, torch.rand(3, 3, 64, 64))
+    conv3x3(x.bfloat16(), torch.rand(3, 3, 64, 64))      # the tensor-core shape, on the CPU
+    deconv2x2(x, torch.rand(64, 2, 2, 4), torch.rand(4))
+    warp_nearest(torch.zeros(4, 4, dtype=torch.uint8), torch.eye(3)[None], (4, 4),
+                 torch.arange(256, dtype=torch.float32))
+    assert counts() == before
 
 
 def test_wrappers_refuse_other_devices():

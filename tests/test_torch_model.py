@@ -27,7 +27,7 @@ from sports_field_homography_tpu_torch.compat.jax_params import state_dict_from_
 from sports_field_homography_tpu_torch.data.assets import open_court_template
 from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
 from sports_field_homography_tpu_torch.ops.fold_bn import fold_batchnorm
-from sports_field_homography_tpu_torch.ops.warp import template_value_step
+from sports_field_homography_tpu_torch.ops.warp import template_value_table
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "assets")
@@ -86,7 +86,7 @@ def setup():
     labels = open_court_template(COURT, 4, size=COURT_SIZE)
     return dict(variables=variables, x=x, court=court, poi=poi,
                 table=build_interval_table(court), labels=labels,
-                step=template_value_step(labels, 4))
+                values=template_value_table(labels, 4))
 
 
 def _jit_predict(jmodel, v, s):
@@ -107,7 +107,7 @@ def _port(cfg, variables, folded):
 def _port_predict(model, s):
     with torch.inference_mode():
         out = model.predict(torch.from_numpy(s["x"]), torch.from_numpy(s["labels"]),
-                            s["step"])
+                            s["values"])
     return {k: v.numpy() for k, v in out.items()}
 
 
