@@ -21,12 +21,13 @@ its seconds:
                   labels equal;
      K2 conv3x3   64->64 at 360x640 and 128->128 at 180x320, with and
                   without the prologue;
-     K3 deconv    the four UNet up-convs;
+     K3 deconv    the four UNet up-convs (up1 1024->512 at 22x40 .. up4
+                  128->64 at 180x320);
      K2+stats     64->64 at 360x640 with the prologue, 1024->512 at 45x80;
      K5 wgrad     64->64 at 360x640 with and without the prologue, 128->128
                   at 180x320, 1024->512 at 45x80;
      K7-bwd       360x640x64;
-     K3-bwd       up4 (180x320x128 -> 64) and up1 (22x40x1024 -> 512);
+     K3-bwd       the same four up-convs;
      K7-fwd       stats of 360x640x64 (f32, the stem's output, and bf16),
                   norm of 360x640x64 (f32: equal bit for bit; bf16);
      K2 two-input 64+64->64 at 360x640 (up4 conv1) and 512+512->512 at
@@ -38,22 +39,25 @@ its seconds:
    the plain version in float64 on the same inputs), and in bf16 against
    the plain version on the same bf16 inputs, which like the kernels
    accumulates in f32 (rtol = atol = 2e-2; reductions rel-L2 <= 1e-3).
-   Every reduction kernel is run twice and must repeat bitwise.  K2 and K5
-   have two routes, and each call here asserts the one it took: f32 on the
-   SIMT kernels (conv3x3.cu, wgrad3x3.cu), bf16 on the tensor-core kernels
-   (conv3x3_sm90.cu, wgrad3x3_sm90.cu).  Then each bf16 UNet level's K2
-   (one- and two-input, prologue, stats, dgrad) and K5 on the tensor cores,
-   checked and timed beside its library call and bound (``K2_LEVELS``,
-   ``K5_LEVELS``).
+   Every reduction kernel is run twice and must repeat bitwise.  K2, K5, K3
+   and K3-bwd have two routes, and each call here asserts the one it took:
+   f32 on the SIMT kernels (conv3x3.cu, wgrad3x3.cu, deconv2x2.cu), bf16
+   on the tensor-core kernels (conv3x3_sm90.cu, wgrad3x3_sm90.cu,
+   deconv2x2_sm90.cu).  K3 and K3-bwd are timed here in f32; then each
+   bf16 UNet level's K2 (one- and two-input, prologue, stats, dgrad), K5,
+   K3 and K3-bwd on the tensor cores, checked and timed beside its library
+   call and bound (``K2_LEVELS``, ``K5_LEVELS``, ``K3_LEVELS``; the K3 and
+   K3-bwd entries of the kernels line are their sums over the four
+   up-convs).
 4. predict: 16 seeded 640x360 PNG frames, a seeded resnet34 img+mask model
    saved as .pth, the predict CLI in-process (bf16, theta + consistency,
    batch 8, NCAA court).  Checks 16 finite records and that K1, K2 (one-
    and two-input), K3 and K7-fwd's norm launched; then 2 frames in f32 on
    CUDA (TF32 off) against the CPU (plain versions): theta max-abs <=
    2e-4, score <= 1e-3.  Prints the device time of a batch of 8.  Every
-   bf16 K2 and K5 launch of the predict, train and test-CLI phases must
-   take the tensor-core route (``tc_launches`` == ``launches``), every f32
-   one of the parity runs the SIMT route.
+   bf16 K2, K5, K3 and K3-bwd launch of the predict, train and test-CLI
+   phases must take the tensor-core route (``tc_launches`` ==
+   ``launches``), every f32 one of the parity runs the SIMT route.
 5. train: a seeded synthetic 640x360 set (24 train, 8 validation frames),
    a JSON conf (the flagship, bf16, the example conf's losses and RMSprop,
    consist_start_iter 0), the train CLI in-process: 3 steps at batch 8 and
@@ -86,8 +90,9 @@ its seconds:
 
 The last two lines are JSON: the kernel table (each kernel's launches in
 the deconv predict run, or for the training kernels the deconv train run;
-for the f32 SIMT routes ``conv3x3_f32`` and ``wgrad3x3_f32`` the deconv
-predict's and train step's f32 parity runs; its error, times and bound),
+for the f32 SIMT routes ``conv3x3_f32`` / ``deconv2x2_f32`` and
+``wgrad3x3_f32`` / ``deconv2x2_backward_f32`` the deconv predict's and
+train step's f32 parity runs; its error, times and bound),
 then ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -203,9 +208,10 @@ def _compare(name, got, ref, rtol, atol):
 
 
 def routed(kernel, tc, call):
-    """``call()``, which must launch ``kernel`` (``conv3x3`` or ``wgrad3x3``)
-    at least once: every launch on the tensor-core route when ``tc``, none
-    of them otherwise.  Returns what ``call`` returned."""
+    """``call()``, which must launch ``kernel`` (``conv3x3``, ``wgrad3x3``,
+    ``deconv2x2`` or ``deconv2x2_backward``) at least once: every launch on
+    the tensor-core route when ``tc``, none of them otherwise.  Returns what
+    ``call`` returned."""
     n0, t0 = kernel.launches, kernel.tc_launches
     out = call()
     n, t = kernel.launches - n0, kernel.tc_launches - t0
@@ -326,36 +332,36 @@ def phase_kernels(dev, card):
         del x32
     results["conv3x3"] = entry(k2_err, *k2_ms, *k2_lib)
 
-    # --- K3: deconv k2s2 --------------------------------------------------
-    k3_err, k3_ms, k3_pms, k3_lib, k3_flops, k3_bytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0
-    for (h, w, cin) in ((22, 40, 1024), (45, 80, 512), (90, 160, 256), (180, 320, 128)):
+    # --- K3: deconv k2s2 at the four up-convs: f32 on the SIMT kernel, bf16
+    # on the tensor cores (timed per level in phase_levels) -----------------
+    err32, errb, ms32, pms32, lib32, flops, n_bytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0
+    for tag, h, w, cin in K3_LEVELS:
         cout = cin // 2
         x32 = torch.randn((BATCH, h, w, cin), generator=gen, device=dev)
         wt = torch.randn((cin, 2, 2, cout), generator=gen, device=dev) / cin ** 0.5
         b = torch.randn((cout,), generator=gen, device=dev) * 0.1
-        tag = f"{cin}->{cout} {h}x{w}->{2 * h}x{2 * w}"
-        err = _compare(f"K3 f32 {tag}", deconv2x2(x32, wt, b),
-                       deconv2x2_plain(x32, wt, b), 1e-4, 1e-4)
+        got = routed(deconv2x2, False, lambda: deconv2x2(x32, wt, b))
+        err = _compare(f"K3 f32 {tag}", got, deconv2x2_plain(x32, wt, b), 1e-4, 1e-4)
         xb, wb = x32.bfloat16(), wt.bfloat16()
-        errb = _compare(f"K3 bf16 {tag}", deconv2x2(xb, wb, b),
-                        deconv2x2_plain(xb.float(), wb.float(), b), 2e-2, 2e-2)
-        ms = cuda_ms(lambda: deconv2x2(xb, wb, b))
-        pms = cuda_ms(lambda: deconv2x2_plain(xb, wb, b))
-        wt_io = wb.permute(0, 3, 1, 2).contiguous()          # (Cin, Cout, 2, 2)
-        lib = cuda_ms(lambda: F.conv_transpose2d(nchw(xb), wt_io, b.bfloat16(), stride=2))
-        log(f"K3 deconv2x2 {tag}: max abs err f32 {err:.2e}, bf16 vs f32 {errb:.2e}; "
-            f"bf16 kernel {ms:.3f} ms, plain (cuDNN) {pms:.3f} ms, library "
-            f"F.conv_transpose2d {lib:.3f} ms [{card}]")
-        k3_err = max(k3_err, err, errb)
-        k3_ms += ms
-        k3_pms += pms
-        k3_lib += lib
-        k3_flops += 2.0 * BATCH * h * w * cin * 4 * cout
-        k3_bytes += nbytes(xb, wb) + BATCH * 4 * h * w * cout * 2
-    bnd = bound(k3_flops, k3_bytes)
-    log(f"K3 deconv2x2 all four up-convs, bf16: kernel {k3_ms:.3f} ms, plain {k3_pms:.3f} ms, "
-        f"library {k3_lib:.3f} ms; bound {bnd[0]:.3f} ms ({bnd[1]})")
-    results["deconv2x2"] = entry(k3_err, k3_ms, k3_pms, k3_lib, bnd)
+        eb = _compare(f"K3 bf16 {tag}", routed(deconv2x2, True, lambda: deconv2x2(xb, wb, b)),
+                      deconv2x2_plain(xb.float(), wb.float(), b), 2e-2, 2e-2)
+        ms = cuda_ms(lambda: deconv2x2(x32, wt, b))
+        pms = cuda_ms(lambda: deconv2x2_plain(x32, wt, b))
+        xn, wt_io = nchw(x32), wt.permute(0, 3, 1, 2).contiguous()    # (Cin, Cout, 2, 2)
+        lib = cuda_ms(lambda: F.conv_transpose2d(xn, wt_io, b, stride=2))
+        log(f"K3 deconv2x2 {tag}: f32 (SIMT) max abs err {err:.2e}, bf16 (tensor cores) vs "
+            f"f32 {eb:.2e}; f32 kernel {ms:.3f} ms, plain (cuDNN f32) {pms:.3f} ms, library "
+            f"F.conv_transpose2d f32 {lib:.3f} ms [{card}]")
+        err32, errb = max(err32, err), max(errb, eb)
+        ms32, pms32, lib32 = ms32 + ms, pms32 + pms, lib32 + lib
+        flops += 2.0 * BATCH * h * w * cin * 4 * cout
+        n_bytes += nbytes(x32, wt, got)
+        del x32, xb, got, xn
+    bnd = bound(flops, n_bytes, PEAK_F32)
+    log(f"K3 deconv2x2 f32 (SIMT) all four up-convs: kernel {ms32:.3f} ms, plain {pms32:.3f} "
+        f"ms, library {lib32:.3f} ms; bound {bnd[0]:.3f} ms ({bnd[1]}); bf16 max abs err "
+        f"{errb:.2e} [{card}]")
+    results["deconv2x2_f32"] = entry(err32, ms32, pms32, lib32, bnd)
     return results
 
 
@@ -411,16 +417,18 @@ def phase_predict(dev, card, work, bilinear=False):
                "bn_relu_norm": bn_relu_norm}
     for fn in kernels.values():
         fn.launches = 0
-    conv3x3.dual_launches = conv3x3.tc_launches = 0
+    conv3x3.dual_launches = conv3x3.tc_launches = deconv2x2.tc_launches = 0
     stats = predict_cli.process(
         ["--img_dir", frames, "--load", ckpt, "--dst_dir", dst,
          "--req_outputs", "theta,consistency", "--batchsize", str(BATCH),
          "--court_img", COURT_IMG, "--court_poi", COURT_POI] + flag)
     launches = _predict_launches(kernels)
-    log(f"predict {variant}: kernel launches in the CLI run: {launches}; K2 on the "
-        f"tensor cores {conv3x3.tc_launches} of {conv3x3.launches}")
-    if conv3x3.tc_launches != conv3x3.launches:
-        raise AssertionError(f"predict {variant}: a bf16 K2 launch left the tensor-core route")
+    log(f"predict {variant}: kernel launches in the CLI run: {launches}; on the tensor "
+        f"cores: K2 {conv3x3.tc_launches} of {conv3x3.launches}, K3 {deconv2x2.tc_launches} of "
+        f"{deconv2x2.launches}")
+    if conv3x3.tc_launches != conv3x3.launches or deconv2x2.tc_launches != deconv2x2.launches:
+        raise AssertionError(f"predict {variant}: a bf16 K2 or K3 launch left the tensor-core "
+                             "route")
     for name, n in launches.items():
         if n <= 0 and not (bilinear and name == "deconv2x2"):
             raise AssertionError(f"predict {variant}: {name} was never launched by the path")
@@ -461,13 +469,18 @@ def phase_predict(dev, card, work, bilinear=False):
         Args.device = device
         b = build_model(Args, load=ckpt, fold_bn=True)
         n0, t0 = conv3x3.launches, conv3x3.tc_launches
+        d0, dt0 = deconv2x2.launches, deconv2x2.tc_launches
         with torch.inference_mode():
             p = b.model.predict(x.to(b.device), b.court_labels, b.value_table)
         res[device] = {k: p[k].float().cpu() for k in ("theta", "consist_score")}
-        if device == "cuda":    # f32: every K2 launch on the SIMT kernel
+        if device == "cuda":    # f32: every K2 and K3 launch on the SIMT kernels
             launches["conv3x3_f32"] = conv3x3.launches - n0
+            launches["deconv2x2_f32"] = deconv2x2.launches - d0
             if launches["conv3x3_f32"] <= 0 or conv3x3.tc_launches != t0:
                 raise AssertionError(f"predict {variant} f32: K2 did not run on the SIMT "
+                                     "route alone")
+            if (launches["deconv2x2_f32"] <= 0) != bilinear or deconv2x2.tc_launches != dt0:
+                raise AssertionError(f"predict {variant} f32: K3 did not run on the SIMT "
                                      "route alone")
     d_theta = (res["cuda"]["theta"] - res["cpu"]["theta"]).abs().max().item()
     d_score = (res["cuda"]["consist_score"] - res["cpu"]["consist_score"]).abs().max().item()
@@ -663,51 +676,52 @@ def phase_train_kernels(dev, card):
     del out, yl, gn
     del y, g, dx, dx_ref, yb, gb, dxb, dxb_ref
 
-    # --- K3-bwd ------------------------------------------------------------
-    err, timing = 0.0, None
-    for (h, w, cin) in ((180, 320, 128), (22, 40, 1024)):
+    # --- K3-bwd at the four up-convs: f32 on the SIMT kernels, bf16 on the
+    # tensor cores (timed per level in phase_levels) -------------------------
+    err32, ms32, pms32, lib32, flops, n_bytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0
+    for tag, h, w, cin in K3_LEVELS:
         cout = cin // 2
         x = rnd(BATCH, h, w, cin)
         dy = rnd(BATCH, 2 * h, 2 * w, cout)
         wt = rnd(cin, 2, 2, cout, scale=cin ** -0.5)
-        tag = f"{cin}->{cout} {h}x{w}->{2 * h}x{2 * w}"
-        dx, dw, db = deconv2x2_backward(x, dy, wt)
+        dx, dw, db = routed(deconv2x2_backward, False, lambda: deconv2x2_backward(x, dy, wt))
         dx_ref, _, _ = deconv2x2_backward_plain(x, dy, wt)
         _, dw64, db64 = deconv2x2_backward_plain(x.double(), dy.double(), wt.double())
         e = _compare(f"K3-bwd f32 dx {tag}", dx, dx_ref, 1e-4, 1e-4)
         r = max(_reduction(f"K3-bwd f32 dW {tag}", dw, dw64, 1e-5),
                 _reduction(f"K3-bwd f32 db {tag}", db, db64, 1e-5))
+        del dw64, db64
+        rep = _repeats_bitwise(f"K3-bwd f32 {tag}", lambda: deconv2x2_backward(x, dy, wt))
         xb, dyb, wb = x.bfloat16(), dy.bfloat16(), wt.bfloat16()
-        dxb, dwb, dbb = deconv2x2_backward(xb, dyb, wb)
+        dxb, dwb, dbb = routed(deconv2x2_backward, True, lambda: deconv2x2_backward(xb, dyb, wb))
         dxb_ref, dwb_ref, dbb_ref = deconv2x2_backward_plain(xb, dyb, wb)
         eb = _compare(f"K3-bwd bf16 dx {tag}", dxb, dxb_ref, 2e-2, 2e-2)
         rb = max(_reduction(f"K3-bwd bf16 dW {tag}", dwb, dwb_ref, 1e-3),
                  _reduction(f"K3-bwd bf16 db {tag}", dbb, dbb_ref, 1e-3))
-        rep = _repeats_bitwise(f"K3-bwd {tag}", lambda: deconv2x2_backward(xb, dyb, wb))
-        ms = cuda_ms(lambda: deconv2x2_backward(xb, dyb, wb))
-        pms = cuda_ms(lambda: deconv2x2_backward_plain(xb, dyb, wb))
-        log(f"K3-bwd deconv2x2_backward {tag}: f32 dx max abs err {e:.2e}, dW/db rel-L2 "
-            f"{r:.2e} (vs float64); bf16 dx max abs err {eb:.2e}, dW/db rel-L2 {rb:.2e}; "
-            f"{rep}; bf16 kernel {ms:.3f} ms, plain (cuDNN dgrad + f32 einsum) "
-            f"{pms:.3f} ms [{card}]")
-        err = max(err, e, eb)
-        if timing is None:
-            # yardstick: the autograd of F.conv_transpose2d (forward not timed)
-            xl = nchw(xb).detach().requires_grad_()
-            wl = wb.permute(0, 3, 1, 2).contiguous().requires_grad_()
-            bl = torch.zeros(cout, device=dev, dtype=torch.bfloat16, requires_grad=True)
-            out = F.conv_transpose2d(xl, wl, bl, stride=2)
-            dyn = nchw(dyb)
-            lib = cuda_ms(lambda: torch.autograd.grad(out, (xl, wl, bl), dyn,
-                                                      retain_graph=True))
-            bnd = bound(2 * 2.0 * BATCH * h * w * cin * 4 * cout,
-                        nbytes(xb, dyb, wb, dxb, dwb, dbb))
-            log(f"K3-bwd library (autograd of F.conv_transpose2d) {tag}: {lib:.3f} ms; "
-                f"bound {bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
-            timing = (ms, pms, lib, bnd)
-            del out, xl, dyn
-        del x, dy, dx, dx_ref, xb, dyb, dxb, dxb_ref
-    results["deconv2x2_backward"] = entry(err, *timing)
+        _repeats_bitwise(f"K3-bwd bf16 {tag}", lambda: deconv2x2_backward(xb, dyb, wb))
+        ms = cuda_ms(lambda: deconv2x2_backward(x, dy, wt))
+        pms = cuda_ms(lambda: deconv2x2_backward_plain(x, dy, wt))
+        # yardstick: the autograd of F.conv_transpose2d in f32 (forward not timed)
+        xl = nchw(x).detach().requires_grad_()
+        wl = wt.permute(0, 3, 1, 2).contiguous().requires_grad_()
+        bl = torch.zeros(cout, device=dev, requires_grad=True)
+        out = F.conv_transpose2d(xl, wl, bl, stride=2)
+        dyn = nchw(dy)
+        lib = cuda_ms(lambda: torch.autograd.grad(out, (xl, wl, bl), dyn, retain_graph=True))
+        log(f"K3-bwd deconv2x2_backward {tag}: f32 (SIMT) dx max abs err {e:.2e}, dW/db rel-L2 "
+            f"{r:.2e} (vs float64); bf16 (tensor cores) dx max abs err {eb:.2e}, dW/db rel-L2 "
+            f"{rb:.2e}; {rep} (both routes); f32 kernel {ms:.3f} ms, plain (cuDNN dgrad + "
+            f"einsum, f32) {pms:.3f} ms, library (autograd of F.conv_transpose2d, f32) "
+            f"{lib:.3f} ms [{card}]")
+        err32 = max(err32, e)
+        ms32, pms32, lib32 = ms32 + ms, pms32 + pms, lib32 + lib
+        flops += 2 * 2.0 * BATCH * h * w * cin * 4 * cout
+        n_bytes += nbytes(x, dy, wt, dx, dw, db)
+        del x, dy, dx, dx_ref, xb, dyb, dxb, dxb_ref, out, xl, dyn
+    bnd = bound(flops, n_bytes, PEAK_F32)
+    log(f"K3-bwd f32 (SIMT) all four up-convs: kernel {ms32:.3f} ms, plain {pms32:.3f} ms, "
+        f"library {lib32:.3f} ms; bound {bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
+    results["deconv2x2_backward_f32"] = entry(err32, ms32, pms32, lib32, bnd)
     return results
 
 
@@ -829,20 +843,28 @@ K2_LEVELS = (("64->64", 360, 640, 64, 0, 64, False, False, False),
 K5_LEVELS = (("64->64", 360, 640, 64, 64, False), ("64->64 +prologue", 360, 640, 64, 64, True),
              ("128->128", 180, 320, 128, 128, False), ("512->512", 45, 80, 512, 512, False),
              ("1024->1024", 22, 40, 1024, 1024, False), ("1024->512", 45, 80, 1024, 512, False))
+# the UNet's four up-convs (K3, K3-bwd) at 640x360: (tag, H, W, Cin), Cout = Cin / 2
+K3_LEVELS = (("up1 1024->512", 22, 40, 1024), ("up2 512->256", 45, 80, 512),
+             ("up3 256->128", 90, 160, 256), ("up4 128->64", 180, 320, 128))
 
 
 def phase_levels(dev, card):
-    """The tensor-core K2 and K5 at each UNet level's bf16 shape (batch 8):
-    each against its plain version, timed beside one library call (for K2
-    ``F.conv2d`` channels_last on the same operands -- the concat for two
-    inputs, the flipped weights for a dgrad -- without the prologue or the
-    stats, which no single call computes; for K5
-    ``torch.nn.grad.conv2d_weight``) and its bound."""
+    """The tensor-core K2, K5, K3 and K3-bwd at each UNet level's bf16 shape
+    (batch 8): each against its plain version, timed beside one library
+    call (for K2 ``F.conv2d`` channels_last on the same operands -- the
+    concat for two inputs, the flipped weights for a dgrad -- without the
+    prologue or the stats, which no single call computes; for K5
+    ``torch.nn.grad.conv2d_weight``; for K3 ``F.conv_transpose2d`` and for
+    K3-bwd its autograd) and its bound.  Returns the kernels-line entries of
+    K3 and K3-bwd: times, library times and bounds summed over the four
+    up-convs."""
     import torch
     import torch.nn.functional as F
 
     from sports_field_homography_tpu_torch.ops.conv3x3 import (
         conv3x3, conv3x3_plain, dgrad_weights)
+    from sports_field_homography_tpu_torch.ops.deconv import (
+        deconv2x2, deconv2x2_backward, deconv2x2_backward_plain, deconv2x2_plain)
     from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3, wgrad3x3_plain
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -913,9 +935,73 @@ def phase_levels(dev, card):
             f"({bnd[1]}); kernel / library {ms / lib:.2f}, kernel / bound {ms / bnd[0]:.2f} "
             f"[{card}]")
         del x, dy, dw, db, dw_ref
+    # K3 and K3-bwd: [max abs err, ms, plain ms, library ms, flops, bytes]
+    sums = {"deconv2x2": [0.0] * 6, "deconv2x2_backward": [0.0] * 6}
+
+    def add(name, err, ms, pms, lib, flops, n_bytes):
+        s = sums[name]
+        s[0] = max(s[0], err)
+        for i, v in enumerate((ms, pms, lib, flops, n_bytes), 1):
+            s[i] += v
+
+    for tag, h, w, cin in K3_LEVELS:
+        cout = cin // 2
+        x, dy = rnd(BATCH, h, w, cin), rnd(BATCH, 2 * h, 2 * w, cout)
+        wt = rnd(cin, 2, 2, cout, scale=cin ** -0.5)
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        y = routed(deconv2x2, True, lambda: deconv2x2(x, wt, b))
+        err = _compare(f"K3 bf16 {tag}", y, deconv2x2_plain(x.float(), wt.float(), b), 2e-2, 2e-2)
+        ms = cuda_ms(lambda: deconv2x2(x, wt, b))
+        pms = cuda_ms(lambda: deconv2x2_plain(x, wt, b))
+        xn, wl, bb = nchw(x), wt.permute(0, 3, 1, 2).contiguous(), b.bfloat16()
+        lib = cuda_ms(lambda: F.conv_transpose2d(xn, wl, bb, stride=2))
+        flops = 2.0 * BATCH * h * w * cin * 4 * cout
+        bnd = bound(flops, nbytes(x, wt, y))
+        rows.append(("K3", tag, f"{h}x{w}", ms, lib, bnd))
+        add("deconv2x2", err, ms, pms, lib, flops, nbytes(x, wt, y))
+        log(f"level K3 bf16 {tag} at {h}x{w}: max abs err {err:.2e}; tensor-core kernel "
+            f"{ms:.3f} ms, plain {pms:.3f} ms, library F.conv_transpose2d {lib:.3f} ms, bound "
+            f"{bnd[0]:.3f} ms ({bnd[1]}); kernel / library {ms / lib:.2f}, kernel / bound "
+            f"{ms / bnd[0]:.2f} [{card}]")
+
+        def run():
+            return deconv2x2_backward(x, dy, wt)
+
+        dx, dw, db = routed(deconv2x2_backward, True, run)
+        dx_ref, dw_ref, db_ref = deconv2x2_backward_plain(x, dy, wt)
+        err = _compare(f"K3-bwd bf16 dx {tag}", dx, dx_ref, 2e-2, 2e-2)
+        rel = max(_reduction(f"K3-bwd bf16 {tag} dW", dw, dw_ref, 1e-3),
+                  _reduction(f"K3-bwd bf16 {tag} db", db, db_ref, 1e-3))
+        _repeats_bitwise(f"K3-bwd bf16 {tag}", run)
+        ms = cuda_ms(run)
+        pms = cuda_ms(lambda: deconv2x2_backward_plain(x, dy, wt))
+        # yardstick: the autograd of F.conv_transpose2d (forward not timed)
+        xl, wg = xn.detach().requires_grad_(), wl.requires_grad_()
+        bg = torch.zeros(cout, device=dev, dtype=torch.bfloat16, requires_grad=True)
+        out = F.conv_transpose2d(xl, wg, bg, stride=2)
+        dyn = nchw(dy)
+        lib = cuda_ms(lambda: torch.autograd.grad(out, (xl, wg, bg), dyn, retain_graph=True))
+        n_bytes = nbytes(x, dy, wt, dx, dw, db)
+        bnd = bound(2 * flops, n_bytes)
+        rows.append(("K3-bwd", tag, f"{h}x{w}", ms, lib, bnd))
+        add("deconv2x2_backward", err, ms, pms, lib, 2 * flops, n_bytes)
+        log(f"level K3-bwd bf16 {tag} at {h}x{w}: dx max abs err {err:.2e}, dW/db rel-L2 "
+            f"{rel:.2e}, bitwise repeat; tensor-core kernels {ms:.3f} ms, plain {pms:.3f} ms, "
+            f"library (autograd of F.conv_transpose2d) {lib:.3f} ms, bound {bnd[0]:.3f} ms "
+            f"({bnd[1]}); kernel / library {ms / lib:.2f}, kernel / bound {ms / bnd[0]:.2f} "
+            f"[{card}]")
+        del x, dy, y, dx, dw, dx_ref, dw_ref, xn, xl, out, dyn
     log("levels table (kernel | shape | level | kernel ms | library ms | bound ms | bound by):")
     for k, tag, lvl, ms, lib, bnd in rows:
         log(f"| {k} | {tag} | {lvl} | {ms:.3f} | {lib:.3f} | {bnd[0]:.3f} | {bnd[1]} |")
+    results = {}
+    for name, (err, ms, pms, lib, flops, n_bytes) in sums.items():
+        bnd = bound(flops, n_bytes)
+        log(f"{name} bf16 (tensor cores) all four up-convs: kernel {ms:.3f} ms, plain "
+            f"{pms:.3f} ms, library {lib:.3f} ms; bound {bnd[0]:.3f} ms ({bnd[1]}); kernel / "
+            f"library {ms / lib:.2f} [{card}]")
+        results[name] = entry(err, ms, pms, lib, bnd)
+    return results
 
 
 def _train_conf(work, data, name="flagship", **extra):
@@ -1159,7 +1245,7 @@ def phase_train(dev, card, work, bilinear=False):
     for fn in counters.values():
         fn.launches = 0
     conv3x3.stats_launches = conv3x3.dual_launches = conv3x3.tc_launches = 0
-    wgrad3x3.tc_launches = 0
+    wgrad3x3.tc_launches = deconv2x2.tc_launches = deconv2x2_backward.tc_launches = 0
     t0 = time.perf_counter()
     hist = train_cli.main(["-c", conf])
     torch.cuda.synchronize()
@@ -1167,12 +1253,13 @@ def phase_train(dev, card, work, bilinear=False):
     launches = {name: fn.launches for name, fn in counters.items()}
     launches["conv3x3_stats"] = conv3x3.stats_launches
     launches["conv3x3_dual"] = conv3x3.dual_launches
+    routes = {k: (counters[k].tc_launches, counters[k].launches)
+              for k in ("conv3x3", "wgrad3x3", "deconv2x2", "deconv2x2_backward")}
     log(f"train {variant}: kernel launches in the CLI run: {launches}; on the tensor cores: "
-        f"K2 {conv3x3.tc_launches} of {conv3x3.launches}, K5 {wgrad3x3.tc_launches} of "
-        f"{wgrad3x3.launches}")
-    if conv3x3.tc_launches != conv3x3.launches or wgrad3x3.tc_launches != wgrad3x3.launches:
-        raise AssertionError(f"train {variant}: a bf16 K2 or K5 launch left the tensor-core "
-                             "route")
+        + ", ".join(f"{k} {t} of {n}" for k, (t, n) in routes.items()))
+    if any(t != n for t, n in routes.values()):
+        raise AssertionError(f"train {variant}: a bf16 K2, K5, K3 or K3-bwd launch left the "
+                             "tensor-core route")
     deconv_only = ("deconv2x2", "deconv2x2_backward")
     for name, n in launches.items():
         if n <= 0 and not (bilinear and name in deconv_only):
@@ -1258,17 +1345,20 @@ def _step_parity(tag, bilinear=False, seed=5):
     import torch
 
     from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2, deconv2x2_backward
     from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3
 
     kw = dict(seed=seed, bilinear=bilinear)
-    counts = (conv3x3.launches, conv3x3.tc_launches, wgrad3x3.launches, wgrad3x3.tc_launches)
+    kernels = (conv3x3, wgrad3x3, deconv2x2, deconv2x2_backward)
+    counts = [(k.launches, k.tc_launches) for k in kernels]
     lg, gg, _ = parity_step("cuda", **kw)
-    k2_n, k2_tc, k5_n, k5_tc = (a - b for a, b in zip(
-        (conv3x3.launches, conv3x3.tc_launches, wgrad3x3.launches, wgrad3x3.tc_launches),
-        counts))
-    if k2_n <= 0 or k5_n <= 0 or k2_tc or k5_tc:
-        raise AssertionError(f"{tag}: the f32 step's K2 / K5 did not run on the SIMT route "
-                             f"alone ({k2_tc} of {k2_n}, {k5_tc} of {k5_n} on tensor cores)")
+    (k2_n, k2_tc), (k5_n, k5_tc), (k3_n, k3_tc), (k3b_n, k3b_tc) = (
+        (k.launches - n, k.tc_launches - t) for k, (n, t) in zip(kernels, counts))
+    if (k2_n <= 0 or k5_n <= 0 or (k3_n <= 0) != bilinear or (k3b_n <= 0) != bilinear
+            or k2_tc or k5_tc or k3_tc or k3b_tc):
+        raise AssertionError(f"{tag}: the f32 step's K2 / K5 / K3 / K3-bwd did not run on the "
+                             f"SIMT route alone ({k2_tc} of {k2_n}, {k5_tc} of {k5_n}, {k3_tc} "
+                             f"of {k3_n}, {k3b_tc} of {k3b_n} on tensor cores)")
     (lc, gc, _), (_, g64, _), (_, gu, _) = (
         parity_step("cpu", **kw),
         parity_step("cpu", dtype=torch.float64, **kw),
@@ -1303,8 +1393,8 @@ def _step_parity(tag, bilinear=False, seed=5):
         f"the CPU weights: "
         f"worst {ulp_worst:.3e} ({ulp_name}), median {ulp_median:.3e}; against float64: "
         + ", ".join(f"{d} worst {w:.3e} median {m:.3e}" for d, (w, _, m, _) in to64.items())
-        + f"; SIMT launches K2 {k2_n}, K5 {k5_n}")
-    return k5_n
+        + f"; SIMT launches K2 {k2_n}, K5 {k5_n}, K3 {k3_n}, K3-bwd {k3b_n}")
+    return {"wgrad3x3_f32": k5_n, "deconv2x2_backward_f32": k3b_n}
 
 
 def phase_train_parity():
@@ -1313,13 +1403,13 @@ def phase_train_parity():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    k5_f32 = _step_parity("train parity")
+    f32_launches = _step_parity("train parity")
     # every UNet module of that step, and of steps at larger and odd sizes,
     # replayed from the same inputs and cotangent on CUDA and in float64
     for size, b in (((64, 36), 3), ((128, 72), 3), ((256, 144), 2)):
         _module_replay(size, b, 5)
     torch.backends.cudnn.deterministic = False
-    return k5_f32
+    return f32_launches
 
 
 def phase_bilinear_parity():
@@ -1368,7 +1458,7 @@ def phase_test_cli(dev, card, work, cp_dir, data):
                "bn_relu_norm": bn_relu_norm}
     for fn in kernels.values():
         fn.launches = 0
-    conv3x3.dual_launches = conv3x3.tc_launches = 0
+    conv3x3.dual_launches = conv3x3.tc_launches = deconv2x2.tc_launches = 0
     reconstructor.warp_nearest = recording_k1
     try:
         res = test_cli.main(argv + ["--device", "cuda"])["1"]
@@ -1376,9 +1466,10 @@ def phase_test_cli(dev, card, work, cp_dir, data):
         reconstructor.warp_nearest = k1
     launches = _predict_launches(kernels)
     log(f"test CLI: kernel launches in the run: {launches}; K1 grids {sorted(set(grids))}; "
-        f"K2 on the tensor cores {conv3x3.tc_launches} of {conv3x3.launches}")
-    if conv3x3.tc_launches != conv3x3.launches:
-        raise AssertionError("test CLI: a bf16 K2 launch left the tensor-core route")
+        f"on the tensor cores: K2 {conv3x3.tc_launches} of {conv3x3.launches}, K3 "
+        f"{deconv2x2.tc_launches} of {deconv2x2.launches}")
+    if conv3x3.tc_launches != conv3x3.launches or deconv2x2.tc_launches != deconv2x2.launches:
+        raise AssertionError("test CLI: a bf16 K2 or K3 launch left the tensor-core route")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"test CLI: {name} was never launched")
@@ -1394,11 +1485,11 @@ def phase_test_cli(dev, card, work, cp_dir, data):
     log("test CLI bf16: " + ", ".join(f"{k} {res[k]:.6g}" for k in keys)
         + f"; {res['elapsed_ms']:.1f} ms for 8 frames (device-synchronised) [{card}]")
 
-    tc0 = conv3x3.tc_launches
+    tc0 = (conv3x3.tc_launches, deconv2x2.tc_launches)
     f32 = {d: test_cli.main(argv + ["--device", d, "--compute_dtype", "float32"])["1"]
            for d in ("cuda", "cpu")}
-    if conv3x3.tc_launches != tc0:
-        raise AssertionError("test CLI f32: a K2 launch took the tensor-core route")
+    if (conv3x3.tc_launches, deconv2x2.tc_launches) != tc0:
+        raise AssertionError("test CLI f32: a K2 or K3 launch took the tensor-core route")
     worst = max(abs(f32["cuda"][k] - f32["cpu"][k]) / max(abs(f32["cpu"][k]), 1e-30)
                 for k in keys)
     log("test CLI f32 CUDA vs CPU: " + ", ".join(
@@ -1479,8 +1570,12 @@ KERNEL_TABLE = [   # name, source, the TPU kernel it replaces
     ("conv3x3", "conv3x3_sm90.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:151"),
     ("conv3x3_dual", "conv3x3_sm90.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:157"),
     ("conv3x3_f32", "conv3x3.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:151"),
-    ("deconv2x2", "deconv2x2.cu", "sports_field_homography_tpu/ops/deconv_pallas.py:77"),
-    ("deconv2x2_backward", "deconv2x2.cu", "sports_field_homography_tpu/ops/deconv_pallas.py:118"),
+    ("deconv2x2", "deconv2x2_sm90.cu", "sports_field_homography_tpu/ops/deconv_pallas.py:77"),
+    ("deconv2x2_f32", "deconv2x2.cu", "sports_field_homography_tpu/ops/deconv_pallas.py:77"),
+    ("deconv2x2_backward", "deconv2x2_sm90.cu",
+     "sports_field_homography_tpu/ops/deconv_pallas.py:118"),
+    ("deconv2x2_backward_f32", "deconv2x2.cu",
+     "sports_field_homography_tpu/ops/deconv_pallas.py:118"),
     ("wgrad3x3", "wgrad3x3_sm90.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:291"),
     ("wgrad3x3_f32", "wgrad3x3.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:291"),
     ("bn_relu_bwd", "bn_relu_bwd.cu", "sports_field_homography_tpu/ops/bn_pallas.py:129"),
@@ -1513,7 +1608,7 @@ def main() -> int:
     kres = run("kernels", phase_kernels, dev, card)
     kres.update(run("train kernels", phase_train_kernels, dev, card))
     kres.update(run("K7-fwd and two-input K2", phase_fwd_kernels, dev, card))
-    run("K2 and K5 levels", phase_levels, dev, card)
+    kres.update(run("K2, K5 and K3 levels", phase_levels, dev, card))
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -1523,7 +1618,7 @@ def main() -> int:
     train_launches, cp_dir, data = run("train", phase_train, dev, card, work)
     launches.update({k: train_launches[k] for k in
                      ("deconv2x2_backward", "wgrad3x3", "bn_relu_bwd", "bn_relu_stats")})
-    launches["wgrad3x3_f32"] = run("train parity", phase_train_parity)
+    launches.update(run("train parity", phase_train_parity))
     run("predict bilinear", phase_predict, dev, card, work, True)
     run("train bilinear", phase_train, dev, card, work, True)
     run("train parity bilinear", phase_bilinear_parity)

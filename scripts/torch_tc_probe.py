@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Quick check and tuning probe of the tensor-core K2 and K5 on one NVIDIA
-GPU (``csrc/conv3x3_sm90.cu``, ``csrc/wgrad3x3_sm90.cu``).
+"""Quick check and tuning probe of the tensor-core K2, K5, K3 and K3-bwd on
+one NVIDIA GPU (``csrc/conv3x3_sm90.cu``, ``csrc/wgrad3x3_sm90.cu``,
+``csrc/deconv2x2_sm90.cu``).
 
-    python3 scripts/torch_tc_probe.py [--variants]
+    python3 scripts/torch_tc_probe.py [--kernels k2,k5,k3] [--variants]
 
-Builds the kernels, then holds the bf16 ``conv3x3`` (one and two inputs,
-prologue, stats) and ``wgrad3x3`` against their plain versions at edge
-shapes (ragged M, 1x1 images, BN = 64 and 128 tiles) and at the UNet's
-level-1 and deep-level shapes (batch 8), checks that every call took the
-tensor-core route and that the sums repeat bitwise, and prints each
-level shape's time (CUDA events, median of 5).  Exits non-zero on a
-failure.
+Builds the kernels (printing what ptxas reports for the tensor-core ones),
+then holds the bf16 ``conv3x3`` (one and two inputs, prologue, stats),
+``wgrad3x3``, ``deconv2x2`` and ``deconv2x2_backward`` against their plain
+versions at edge shapes (ragged M, 1x1 images, BN = 64 and 128 tiles) and
+at the UNet's shapes (batch 8), checks that every call took the
+tensor-core route and that the sums repeat bitwise, and prints each batch-8
+shape's time (CUDA events, median of 5; K3 beside ``F.conv_transpose2d``
+and its autograd).  Exits non-zero on a failure.
 
-``--variants`` also compiles variants of the two kernels from a scratch
-copy of ``csrc/`` (the ring 5 or 6 stages deep, ``cp.async.ca`` gathers
-through L1, two K2 blocks per SM forced by ``__launch_bounds__``; K5
-rings of 6 and 8) and times the bare kernels at the level shapes beside
-the committed version, each held to the plain result.
+``--variants`` also compiles variants of the selected kernels from a
+scratch copy of ``csrc/`` (K2: the ring 5 or 6 stages deep, ``cp.async.ca``
+gathers through L1, two blocks per SM forced by ``__launch_bounds__``; K5:
+rings of 6 and 8; K3: a 4-stage ring, one block per SM allowed, K3-bwd's
+wgrad ring 3 or 6 deep) and times the bare kernels at the UNet's shapes
+beside the committed version, each held to the plain result.
 """
 import argparse
 import ctypes
@@ -42,7 +45,21 @@ VARIANTS = [
     ("wg_s6", "wgrad3x3_sm90.cu", [("constexpr int kStages = 4;", "constexpr int kStages = 6;")]),
     ("wg_s8", "wgrad3x3_sm90.cu", [("constexpr int kStages = 4;", "constexpr int kStages = 8;")]),
     ("wg_ca", "wgrad3x3_sm90.cu", [("@hdr", "cp.async.cg.shared", "cp.async.ca.shared")]),
+    ("dc_base", "deconv2x2_sm90.cu", []),
+    ("dc_s4", "deconv2x2_sm90.cu", [("constexpr int kStages = 3;", "constexpr int kStages = 4;")]),
+    ("dc_lb1", "deconv2x2_sm90.cu", [("__launch_bounds__(kThreads, 2)",
+                                      "__launch_bounds__(kThreads, 1)")]),
+    ("dc_s4lb1", "deconv2x2_sm90.cu", [("constexpr int kStages = 3;", "constexpr int kStages = 4;"),
+                                        ("__launch_bounds__(kThreads, 2)",
+                                         "__launch_bounds__(kThreads, 1)")]),
+    ("dc_wg3", "deconv2x2_sm90.cu", [("constexpr int kWgStages = 4;",
+                                      "constexpr int kWgStages = 3;")]),
+    ("dc_wg6", "deconv2x2_sm90.cu", [("constexpr int kWgStages = 4;",
+                                      "constexpr int kWgStages = 6;")]),
 ]
+# variant name prefix -> (the --kernels tag, its C entry points)
+_VARIANT_KERNELS = {"conv": ("k2", ["sfh_conv3x3_sm90"]), "wg": ("k5", ["sfh_wgrad3x3_sm90"]),
+                    "dc": ("k3", ["sfh_deconv2x2_sm90", "sfh_deconv2x2_bwd_sm90"])}
 K2_SHAPES = [  # (n, h, w, cin, cin2, cout, prologue, stats)
     (1, 5, 7, 64, 0, 64, False, False), (2, 33, 65, 64, 0, 128, True, True),
     (3, 1, 1, 128, 0, 64, True, True), (2, 22, 40, 64, 128, 64, True, True),
@@ -54,6 +71,10 @@ K5_SHAPES = [  # (n, h, w, cin, cout, prologue)
     (1, 5, 7, 64, 64, False), (2, 33, 65, 64, 128, True), (3, 1, 1, 128, 64, True),
     (8, 360, 640, 64, 64, False), (8, 360, 640, 64, 64, True), (8, 180, 320, 128, 128, False),
     (8, 45, 80, 512, 512, False), (8, 22, 40, 1024, 1024, False), (8, 45, 80, 1024, 512, False)]
+K3_SHAPES = [  # (n, h, w, cin, cout): edges, then the four up-convs
+    (1, 5, 7, 64, 64), (2, 45, 80, 128, 64), (1, 1, 1, 64, 128), (1, 3, 5, 1024, 512),
+    (2, 7, 9, 64, 192), (8, 22, 40, 1024, 512), (8, 45, 80, 512, 256), (8, 90, 160, 256, 128),
+    (8, 180, 320, 128, 64)]
 
 
 def cuda_ms(fn, runs=5):
@@ -78,8 +99,50 @@ def rel_l2(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def check_deconv(dev, gen):
+    """K3 and K3-bwd through their wrappers; returns the failures."""
+    import torch
+    import torch.nn.functional as F
+
+    from sports_field_homography_tpu_torch.ops.deconv import (
+        deconv2x2, deconv2x2_backward, deconv2x2_backward_plain, deconv2x2_plain)
+
+    fails = 0
+    for n, h, w, cin, cout in K3_SHAPES:
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev).bfloat16()
+        wt = (torch.randn((cin, 2, 2, cout), generator=gen, device=dev) * cin ** -0.5).bfloat16()
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+        dy = torch.randn((n, 2 * h, 2 * w, cout), generator=gen, device=dev).bfloat16()
+        f0, b0 = deconv2x2.tc_launches, deconv2x2_backward.tc_launches
+        y = deconv2x2(x, wt, b)
+        (dx, dw, db), (_, dw2, _) = deconv2x2_backward(x, dy, wt), deconv2x2_backward(x, dy, wt)
+        y_ref = deconv2x2_plain(x.float(), wt.float(), b)
+        dx_ref, dw_ref, db_ref = deconv2x2_backward_plain(x, dy, wt)
+        errs = ((y.float() - y_ref).abs().max().item(), (dx.float() - dx_ref.float()).abs().max().item(),
+                rel_l2(dw, dw_ref), rel_l2(db, db_ref))
+        ok = (deconv2x2.tc_launches - f0 == 1 and deconv2x2_backward.tc_launches - b0 == 2
+              and torch.allclose(y.float(), y_ref, rtol=2e-2, atol=2e-2)
+              and torch.allclose(dx.float(), dx_ref.float(), rtol=2e-2, atol=2e-2)
+              and max(errs[2:]) <= 1e-3 and torch.equal(dw, dw2))
+        t = ""
+        if n == 8:
+            xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+            wl = wt.permute(0, 3, 1, 2).contiguous().requires_grad_()
+            bl = b.bfloat16().requires_grad_()
+            out = F.conv_transpose2d(xl, wl, bl, stride=2)
+            dyn = dy.permute(0, 3, 1, 2)
+            t = (f", fwd {cuda_ms(lambda: deconv2x2(x, wt, b)):.3f} ms (library "
+                 f"{cuda_ms(lambda: F.conv_transpose2d(xl, wl, bl, stride=2)):.3f}), bwd "
+                 f"{cuda_ms(lambda: deconv2x2_backward(x, dy, wt)):.3f} ms (library "
+                 f"{cuda_ms(lambda: torch.autograd.grad(out, (xl, wl, bl), dyn, retain_graph=True)):.3f})")
+        print(f"K3 {n}x{h}x{w} {cin}->{cout}: {'ok' if ok else 'FAIL'} (y {errs[0]:.2e}, dx "
+              f"{errs[1]:.2e}, dW {errs[2]:.2e}, db {errs[3]:.2e}){t}", flush=True)
+        fails += not ok
+    return fails
+
+
 def check(dev, gen):
-    """The committed kernels through their wrappers; returns the failures."""
+    """The committed K2 and K5 through their wrappers; returns the failures."""
     import torch
 
     from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
@@ -131,17 +194,21 @@ def check(dev, gen):
     return fails
 
 
-def variants(dev, gen):
-    """Compile the variants and time the bare kernels; returns the failures."""
+def variants(dev, gen, kernels):
+    """Compile the variants of the selected kernels and time the bare
+    kernels; returns the failures."""
     import torch
 
-    from sports_field_homography_tpu_torch.ops.build import NVCC_FLAGS, _nvcc
+    from sports_field_homography_tpu_torch.ops import deconv
+    from sports_field_homography_tpu_torch.ops.build import _SIGNATURES, NVCC_FLAGS, _nvcc
     from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3_plain, pack_weights
     from sports_field_homography_tpu_torch.ops.reduce import split_reduction
 
     work = tempfile.mkdtemp(prefix="sfh_variants_")
     procs = {}
     for name, src, edits in VARIANTS:
+        if _VARIANT_KERNELS[name.split("_")[0]][0] not in kernels:
+            continue
         d = os.path.join(work, name)
         os.makedirs(d)
         for f in (src, "igemm_sm90.cuh"):
@@ -157,17 +224,17 @@ def variants(dev, gen):
         procs[name] = subprocess.Popen(
             [_nvcc()] + flags + ["-shared", "-o", os.path.join(d, "lib.so"), os.path.join(d, src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fns = {}
+    fns = {}      # name -> its C entry points
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"variant {name} failed to build:\n{log[-2000:]}")
         lib = ctypes.CDLL(os.path.join(work, name, "lib.so"))
-        fn = lib.sfh_conv3x3_sm90 if name.startswith("conv") else lib.sfh_wgrad3x3_sm90
-        fn.argtypes = [P] * 10 + [I] * 6 + [P] if name.startswith("conv") else [P] * 3 + [I] * 7 + [P]
-        fn.restype = I
-        fns[name] = fn
+        fns[name] = []
+        for entry in _VARIANT_KERNELS[name.split("_")[0]][1]:
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = _SIGNATURES[entry], ctypes.c_int
+            fns[name].append(fn)
     shutil.rmtree(work, ignore_errors=True)
 
     def rnd(*s, scale=1.0):
@@ -179,7 +246,7 @@ def variants(dev, gen):
     stream = torch.cuda.current_stream().cuda_stream
     fails = 0
     for n, h, w, cin, cin2, cout, pro_on, _ in K2_SHAPES:
-        if n != 8:
+        if n != 8 or not any(name.startswith("conv") for name in fns):
             continue
         scale = 1.0 / (3 * (cin + cin2) ** 0.5)
         x, wt = rnd(n, h, w, cin), rnd(3, 3, cin, cout, scale=scale)
@@ -193,7 +260,7 @@ def variants(dev, gen):
         ref = conv3x3_plain(x, wt, b, pro if pro_on else None, x2=x2, w2=w2).float()
         y = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=dev)
         cells = []
-        for name, fn in fns.items():
+        for name, (fn, *_) in fns.items():
             if not name.startswith("conv"):
                 continue
 
@@ -210,7 +277,7 @@ def variants(dev, gen):
         print(f"variants K2 {cin}+{cin2}->{cout} at {h}x{w} prologue={pro_on} (ms): "
               + ", ".join(cells), flush=True)
     for n, h, w, cin, cout, pro_on in K5_SHAPES:
-        if n != 8 or pro_on:
+        if n != 8 or pro_on or not any(name.startswith("wg") for name in fns):
             continue
         x, dy = rnd(n, h, w, cin), rnd(n, h, w, cout)
         chunk, splits = split_reduction(n * h * w, 9 * cin, cout, stage=64,
@@ -220,7 +287,7 @@ def variants(dev, gen):
         ref = ref.permute(2, 3, 1, 0).reshape(-1)
         part = torch.empty((splits, 9 * cin * cout), dtype=torch.float32, device=dev)
         cells = []
-        for name, fn in fns.items():
+        for name, (fn, *_) in fns.items():
             if not name.startswith("wg"):
                 continue
 
@@ -235,13 +302,50 @@ def variants(dev, gen):
             fails += not ok
         print(f"variants K5 {cin}->{cout} at {h}x{w}, {splits} splits (ms): " + ", ".join(cells),
               flush=True)
+    for n, h, w, cin, cout in K3_SHAPES:
+        if n != 8 or not any(name.startswith("dc") for name in fns):
+            continue
+        x, dy = rnd(n, h, w, cin), rnd(n, 2 * h, 2 * w, cout)
+        wt = rnd(cin, 2, 2, cout, scale=cin ** -0.5)
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+        wk, wkt = deconv.pack_weights(wt), deconv.pack_weights_t(wt)
+        y_ref = deconv.deconv2x2_plain(x.float(), wt.float(), b)
+        dx_ref, dw_ref, _ = deconv.deconv2x2_backward_plain(x, dy, wt)
+        chunk, splits = deconv.tc_wgrad_split(n * h * w, cin, cout)
+        y, dx = torch.empty_like(y_ref, dtype=torch.bfloat16), torch.empty_like(x)
+        part = torch.empty((splits, cin * 4 * cout), dtype=torch.float32, device=dev)
+        cells = []
+        for name, fs in fns.items():
+            if not name.startswith("dc"):
+                continue
+
+            def fwd(fn=fs[0]):
+                return fn(x.data_ptr(), wkt.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, w, cin,
+                          cout, stream)
+
+            def bwd(fn=fs[1]):
+                return fn(x.data_ptr(), dy.data_ptr(), wk.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                          n, h, w, cin, cout, chunk, splits, stream)
+
+            ok = fwd() == 0 and bwd() == 0
+            torch.cuda.synchronize()
+            ok = (ok and torch.allclose(y.float(), y_ref, rtol=2e-2, atol=2e-2)
+                  and torch.allclose(dx.float(), dx_ref.float(), rtol=2e-2, atol=2e-2)
+                  and rel_l2(part.sum(0), dw_ref.reshape(-1)) <= 1e-3)
+            cells.append(f"{name} {cuda_ms(fwd, 9):.3f} / {cuda_ms(bwd, 9):.3f}"
+                         f"{'' if ok else ' FAIL'}")
+            fails += not ok
+        print(f"variants K3 / K3-bwd (dgrad + wgrad, before the column sums) {cin}->{cout} at "
+              f"{h}x{w} (ms): " + ", ".join(cells), flush=True)
     return fails
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", default="k2,k5,k3")
     ap.add_argument("--variants", action="store_true")
     args = ap.parse_args()
+    kernels = set(args.kernels.split(","))
     sys.path.insert(0, REPO)
     import torch
 
@@ -253,11 +357,17 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     build.load_library()
+    for f in sorted(build.build_dir().glob("*.log")):
+        for line in f.read_text().splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print("ptxas: " + line.strip())
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
-    fails = check(dev, gen)
+    fails = check(dev, gen) if kernels & {"k2", "k5"} else 0
+    if "k3" in kernels:
+        fails += check_deconv(dev, gen)
     if args.variants:
-        fails += variants(dev, gen)
+        fails += variants(dev, gen, kernels)
     print(f"failures: {fails} [{card}]")
     return 1 if fails else 0
 

@@ -22,16 +22,21 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# kernel-name patterns -> group, first match wins
+# kernel-name patterns (lower case) -> group, first match wins; every
+# group of the port's kernels comes before cuDNN's, whose keys ("conv",
+# "gemm", "wgrad", "dgrad") the port's names contain too
 _GROUPS = [
     ("K2 conv3x3 tensor cores (fwd, stats, dgrad)", ("conv3x3_sm90_kernel",)),
     ("K5 wgrad3x3 tensor cores", ("wgrad3x3_sm90_kernel",)),
+    # the forward and the dgrad are one kernel template, told apart by its map
+    ("K3 deconv2x2 fwd tensor cores", ("fwdmap",)),
+    ("K3-bwd deconv2x2 dgrad + wgrad tensor cores", ("dgradmap", "deconv2x2_sm90_wgrad")),
     ("K2 conv3x3 SIMT", ("conv3x3_kernel",)),
     ("K5 wgrad3x3 SIMT", ("wgrad3x3_kernel",)),
     ("K7-bwd bn_relu_bwd", ("bn_relu_bwd",)),
     ("K7-fwd bn_relu stats + norm", ("bn_relu_stats", "bn_relu_norm")),
-    ("K3 deconv2x2 fwd", ("deconv2x2_kernel",)),
-    ("K3-bwd deconv2x2 dgrad + wgrad", ("deconv2x2_dgrad", "deconv2x2_wgrad")),
+    ("K3 deconv2x2 fwd SIMT", ("deconv2x2_kernel",)),
+    ("K3-bwd deconv2x2 dgrad + wgrad SIMT", ("deconv2x2_dgrad", "deconv2x2_wgrad")),
     ("column sums (sum_rows)", ("sum_rows_kernel",)),
     # before cuDNN's group: their kernel names contain "nhwc"
     ("max-pool", ("max_pool",)),
@@ -101,7 +106,9 @@ def main() -> int:
         t = getattr(evt, "self_device_time_total", None)
         if t is None:
             t = getattr(evt, "self_cuda_time_total", 0.0)
-        if t and str(getattr(evt, "device_type", "")).endswith("CUDA"):
+        # "#" marks a user annotation (``Optimizer.step#RMSprop.step``) whose
+        # device time spans the kernels under it: not a kernel of its own
+        if t and str(getattr(evt, "device_type", "")).endswith("CUDA") and "#" not in evt.key:
             kernels[evt.key] = (kernels.get(evt.key, (0.0, 0))[0] + t / 1000.0,
                                 kernels.get(evt.key, (0.0, 0))[1] + evt.count)
     busy = sum(t for t, _ in kernels.values())

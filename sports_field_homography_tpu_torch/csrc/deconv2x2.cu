@@ -5,12 +5,15 @@
 // Replaces: sports_field_homography_tpu/ops/deconv_pallas.py::deconv2x2_packed
 // with native output: the forward (_fwd_call, pallas_call at :100) and, as
 // K3-bwd, the backward (_bwd_call, :118, pallas_call at :157; VJP at
-// :220-236) -- see the second half of this file.
+// :220-236) -- see the second half of this file.  The f32 and edge-shape
+// route (f32, or channel counts not multiples of 64); bf16 with Cin and
+// Cout multiples of 64 -- every up-conv of the deconv UNet -- runs on the
+// tensor cores in deconv2x2_sm90.cu.
 //
 // What bounds it on an H100: at the UNet's up-convs the reduction is
 // Cin = 128..1024 deep and the output 4*Cout = 2*Cin wide, so each input
 // pixel costs 2*Cin*4*Cout FLOPs against Cin + 4*Cout elements of traffic:
-// arithmetic-bound, on the CUDA cores in this first version.
+// in f32 on the CUDA cores (67 TFLOP/s), arithmetic-bound.
 //
 // Design: one GEMM with rows = input pixels (M = N*H*W), reduction = Cin,
 // columns = (p, q, o) over the (Cin, 4*Cout) packed weight.  No halo and no

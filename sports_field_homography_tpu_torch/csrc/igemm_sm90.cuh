@@ -1,6 +1,7 @@
-// Shared pieces of the two tensor-core kernels (conv3x3_sm90.cu for K2,
-// wgrad3x3_sm90.cu for K5): Hopper (sm_90a) wgmma on bf16 tiles staged in
-// shared memory by cp.async, f32 accumulators in registers.
+// Shared pieces of the tensor-core kernels (conv3x3_sm90.cu for K2,
+// wgrad3x3_sm90.cu for K5, deconv2x2_sm90.cu for K3 and K3-bwd): Hopper
+// (sm_90a) wgmma on bf16 tiles staged in shared memory by cp.async, f32
+// accumulators in registers.
 //
 // Tile layout.  Every operand tile is a stack of 128-byte rows, one row per
 // pixel (or per weight row), each row 64 bf16 channels, stored with the
@@ -8,10 +9,12 @@
 // Tiles start on 1024-byte boundaries, so the swizzle phase follows the
 // address bits, as wgmma's SW128 mode reads them.
 //
-//   K-major operand (K2's A = patch rows, K2's B = packed weights): row =
+//   K-major operand (K2's A = patch rows, K2's B = packed weights; K3's
+//   forward and dgrad): row =
 //   M or N index, the 64 channels along K; a k16 step moves the descriptor
 //   start by 32 bytes inside the row; SBO = 1024 (8 rows).
-//   MN-major operand (K5's A = patch, K5's B = dy): row = pixel = K index,
+//   MN-major operand (K5's A = patch, K5's B = dy; K3's wgrad): row =
+//   pixel = K index,
 //   the 64 channels along M or N; a k16 step moves 16 rows = 2048 bytes;
 //   SBO = 1024 (8 k-rows), LBO = 8192 (the next 64-wide block of N).
 //

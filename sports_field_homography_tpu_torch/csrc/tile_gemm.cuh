@@ -6,10 +6,9 @@
 // dimension 16 deep at a time through shared memory.  Inputs are read as
 // T (float or bf16) and widened to f32 when they are staged, so one code
 // path serves both dtypes and always accumulates in f32.  This is CUDA-core
-// (SIMT) arithmetic: for K2 and K5 the f32 and edge-shape route.  Their
-// bf16 route runs on the tensor cores (wgmma) in conv3x3_sm90.cu and
-// wgrad3x3_sm90.cu, built on igemm_sm90.cuh; K3 (deconv2x2.cu) still uses
-// this tile GEMM in both dtypes.
+// (SIMT) arithmetic: for K2, K5 and K3 the f32 and edge-shape route.
+// Their bf16 route runs on the tensor cores (wgmma) in conv3x3_sm90.cu,
+// wgrad3x3_sm90.cu and deconv2x2_sm90.cu, built on igemm_sm90.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "sfh_wgrad3x3_sm90": [_P] * 3 + [_I] * 7 + [_P],
     "sfh_deconv2x2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sfh_deconv2x2_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sfh_deconv2x2_sm90": [_P] * 4 + [_I] * 5 + [_P],
+    "sfh_deconv2x2_bwd_sm90": [_P] * 5 + [_I] * 7 + [_P],
     "sfh_wgrad3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sfh_bn_relu_bwd_reduce": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sfh_bn_relu_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -1,9 +1,8 @@
 """K3: k2s2 transposed convolution over NHWC, forward and backward.
 
 Port of ``ops/deconv_pallas.py::deconv2x2_packed`` with native output:
-``y[n, 2i+p, 2j+q, o] = sum_c x[n, i, j, c] * W[c, p, q, o] + b[o]``.
-The CUDA kernels are ``csrc/deconv2x2.cu`` (any H and W, f32
-accumulation): the forward, and K3-bwd (``_bwd_call``), which gives
+``y[n, 2i+p, 2j+q, o] = sum_c x[n, i, j, c] * W[c, p, q, o] + b[o]``,
+and K3-bwd (``_bwd_call``), which gives
 
     dx[n, i, j, c] = sum_{p, q, o} dy[n, 2i+p, 2j+q, o] * W[c, p, q, o]
     dW[c, p, q, o] = sum_{n, i, j} x[n, i, j, c] * dy[n, 2i+p, 2j+q, o]
@@ -11,7 +10,17 @@ accumulation): the forward, and K3-bwd (``_bwd_call``), which gives
 
 with dW and db in f32 (partials added by ``ops/reduce.column_sums`` in a
 fixed order) and dx in x's dtype.  ``deconv2x2`` is differentiable through
-``_Deconv2x2``, whose backward is that kernel.
+``_Deconv2x2``, whose backward is K3-bwd.
+
+Two CUDA routes, any H and W, f32 accumulation, chosen explicitly by dtype
+and shape (``tensor_core_route``): bf16 with Cin and Cout multiples of 64
+-- every up-conv of the deconv UNet -- runs ``csrc/deconv2x2_sm90.cu`` on
+the tensor cores (wgmma); f32 and other channel counts run
+``csrc/deconv2x2.cu`` on the CUDA cores.  Both read the weights as one of
+two packs of the (Cin, 2, 2, Cout) weight: ``pack_weights`` (Cin, 4*Cout),
+column (p*2 + q)*Cout + o (JAX's ``_parity_weights``), and its transpose
+``pack_weights_t`` (4*Cout, Cin).  A tensor-core launch that fails raises;
+it is never handed to the other kernel.
 
 The plain versions are ``F.conv_transpose2d`` in the input dtype with the
 bias added in f32, and for the backward ``F.conv2d`` (dx: a stride-2 conv
@@ -26,10 +35,42 @@ import torch.nn.functional as F
 
 from . import _dispatch
 from .build import check, load_library
+from .conv3x3 import aligned
 from .reduce import column_sums, split_reduction
 
 __all__ = ["deconv2x2", "deconv2x2_plain", "deconv2x2_backward",
-           "deconv2x2_backward_plain"]
+           "deconv2x2_backward_plain", "tensor_core_route", "pack_weights",
+           "pack_weights_t", "tc_wgrad_split"]
+
+_TC_STEP = 64          # pixels per K step of the tensor-core wgrad
+
+
+def tensor_core_route(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """True for the shapes ``csrc/deconv2x2_sm90.cu`` takes: bf16, Cin and
+    Cout multiples of 64."""
+    return (dtype == torch.bfloat16 and cin > 0 and cout > 0
+            and cin % 64 == 0 and cout % 64 == 0)
+
+
+def tc_wgrad_split(m: int, cin: int, cout: int):
+    """(m_chunk, splits) of the tensor-core wgrad's pixel reduction over m
+    input pixels: 64-pixel steps, (64, BN) tiles of the (Cin, 4*Cout) dW,
+    BN = 128 when Cout allows it (``csrc/deconv2x2_sm90.cu``)."""
+    return split_reduction(m, cin, 4 * cout, stage=_TC_STEP,
+                           tile_cols=128 if cout % 128 == 0 else 64)
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """(Cin, 2, 2, Cout) -> (Cin, 4*Cout): row c holds W[c, p, q, o] at
+    column (p*2 + q)*Cout + o (the SIMT forward's B, the tensor-core
+    dgrad's K-major B)."""
+    return w.reshape(w.shape[0], -1).contiguous()
+
+
+def pack_weights_t(w: torch.Tensor) -> torch.Tensor:
+    """(Cin, 2, 2, Cout) -> (4*Cout, Cin), ``pack_weights`` transposed (the
+    SIMT dgrad's B, the tensor-core forward's K-major B)."""
+    return w.reshape(w.shape[0], -1).t().contiguous()
 
 
 def _check(x, w, bias):
@@ -59,18 +100,28 @@ def _forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tens
     n, h, wd, cin = x.shape
     _dispatch.check_pixels(n, 2 * h, 2 * wd)
     cout = w.shape[-1]
-    x = x.contiguous()
-    wpack = w.to(x.dtype).contiguous()          # (Cin, 4*Cout): col (p*2+q)*Cout+o
+    tc = tensor_core_route(x.dtype, cin, cout)
     b = bias.float().contiguous()
     y = torch.empty((n, 2 * h, 2 * wd, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    lib = load_library()
     with torch.cuda.device(x.device):
-        code = load_library().sfh_deconv2x2(
-            x.data_ptr(), wpack.data_ptr(), b.data_ptr(), y.data_ptr(), n, h,
-            wd, cin, cout, code_dt, _dispatch.stream_handle(x.device))
-    check(code, "deconv2x2")
+        x = aligned(x)
+        if tc:
+            wt = aligned(pack_weights_t(w.to(x.dtype)))
+            code = lib.sfh_deconv2x2_sm90(
+                x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, wd, cin,
+                cout, _dispatch.stream_handle(x.device))
+        else:
+            wpack = pack_weights(w.to(x.dtype))
+            code = lib.sfh_deconv2x2(
+                x.data_ptr(), wpack.data_ptr(), b.data_ptr(), y.data_ptr(), n, h,
+                wd, cin, cout, code_dt, _dispatch.stream_handle(x.device))
+    check(code, "deconv2x2 (tensor cores)" if tc else "deconv2x2")
     deconv2x2.launches += 1
+    if tc:
+        deconv2x2.tc_launches += 1
     return y
 
 
@@ -108,23 +159,33 @@ def deconv2x2_backward(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor
     cout = w.shape[-1]
     m = n * h * wd
     _dispatch.check_pixels(n, 2 * h, 2 * wd)
-    x = x.contiguous()
-    dy = dy.to(x.dtype).contiguous()
-    wt = w.to(x.dtype).reshape(cin, 4 * cout).t().contiguous()   # (4*Cout, Cin)
+    tc = tensor_core_route(x.dtype, cin, cout)
+    x, dy = aligned(x), aligned(dy.to(x.dtype))
     dx = torch.empty_like(x)
     if m == 0 or cout == 0:
         return (dx.zero_(), torch.zeros((cin, 2, 2, cout), device=x.device),
                 torch.zeros(cout, device=x.device))
-    chunk, splits = split_reduction(m, cin, 4 * cout)
+    chunk, splits = tc_wgrad_split(m, cin, cout) if tc else split_reduction(m, cin, 4 * cout)
     part = torch.empty((splits, cin * 4 * cout), dtype=torch.float32,
                        device=x.device)
+    lib = load_library()
     with torch.cuda.device(x.device):
-        code = load_library().sfh_deconv2x2_bwd(
-            x.data_ptr(), dy.data_ptr(), wt.data_ptr(), dx.data_ptr(),
-            part.data_ptr(), n, h, wd, cin, cout, chunk, splits, code_dt,
-            _dispatch.stream_handle(x.device))
-    check(code, "deconv2x2_backward")
+        if tc:
+            wpack = aligned(pack_weights(w.to(x.dtype)))
+            code = lib.sfh_deconv2x2_bwd_sm90(
+                x.data_ptr(), dy.data_ptr(), wpack.data_ptr(), dx.data_ptr(),
+                part.data_ptr(), n, h, wd, cin, cout, chunk, splits,
+                _dispatch.stream_handle(x.device))
+        else:
+            wt = pack_weights_t(w.to(x.dtype))
+            code = lib.sfh_deconv2x2_bwd(
+                x.data_ptr(), dy.data_ptr(), wt.data_ptr(), dx.data_ptr(),
+                part.data_ptr(), n, h, wd, cin, cout, chunk, splits, code_dt,
+                _dispatch.stream_handle(x.device))
+    check(code, "deconv2x2_backward (tensor cores)" if tc else "deconv2x2_backward")
     deconv2x2_backward.launches += 1
+    if tc:
+        deconv2x2_backward.tc_launches += 1
     dw = part[0] if splits == 1 else column_sums(part)
     db = column_sums(dy.view(-1, cout))
     return dx, dw.view(cin, 2, 2, cout), db
@@ -164,4 +225,6 @@ def deconv2x2(x: torch.Tensor, w: torch.Tensor,
 
 
 deconv2x2.launches = 0
+deconv2x2.tc_launches = 0             # the subset of launches on the tensor-core kernel
 deconv2x2_backward.launches = 0
+deconv2x2_backward.tc_launches = 0    # the same for K3-bwd

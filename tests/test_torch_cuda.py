@@ -3,10 +3,10 @@ the main paths do not reach (ragged tiles, shallow or odd channel counts,
 1x1 images, odd sizes, degenerate homographies, strided inputs, side
 streams), and the bitwise repeatability of the training kernels'
 reductions (f32 reductions against the plain version in float64, rel-L2
-1e-5; bf16 against the plain version on the same inputs, 1e-3).  K2 and
-K5 are checked on both routes: the SIMT kernels (f32, odd channel counts)
-and the tensor-core kernels (bf16, channels in multiples of 64), each
-call's route read from the launch counters.
+1e-5; bf16 against the plain version on the same inputs, 1e-3).  K2, K5,
+K3 and K3-bwd are checked on both routes: the SIMT kernels (f32, odd
+channel counts) and the tensor-core kernels (bf16, channels in multiples
+of 64), each call's route read from the launch counters.
 
 Marked ``cuda``: each test skips without a CUDA device.  On a GPU box
 (which need not have JAX)::
@@ -612,3 +612,80 @@ def test_warp_gap_template(dev, sample_hw):
     ref = warp_nearest_plain(tmpl, theta, (36, 64), values, sample_hw)
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
     assert float(got.max()) == 0.5
+
+
+# ---- K3 and K3-bwd on the tensor cores (bf16, Cin and Cout multiples of 64) --
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (1, 5, 7, 64, 64),          # M = 35: one ragged row block
+    (2, 45, 80, 128, 64),       # M = 7200, not a multiple of 128
+    (1, 1, 1, 64, 128),         # one pixel; the dgrad's BN = 64 tiles
+    (1, 3, 5, 1024, 512),       # the deepest up-conv's channels at a small odd size
+    (2, 7, 9, 64, 192),         # Cout not a multiple of 128: wgrad BN = 64
+])
+def test_deconv_tensor_core_edges(dev, n, h, w, cin, cout):
+    from sports_field_homography_tpu_torch.ops.deconv import (deconv2x2_backward,
+                                                              deconv2x2_backward_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+    x = _rand(gen, (n, h, w, cin), dev).bfloat16()
+    wt = _rand(gen, (cin, 2, 2, cout), dev, cin ** -0.5).bfloat16()
+    b = _rand(gen, (cout,), dev, 0.1)
+    dy = _rand(gen, (n, 2 * h, 2 * w, cout), dev).bfloat16()
+    y = _routed(deconv2x2, True, lambda: deconv2x2(x, wt, b))
+    assert y.dtype == torch.bfloat16 and y.shape == (n, 2 * h, 2 * w, cout)
+    _close(y, deconv2x2_plain(x.float(), wt.float(), b), torch.bfloat16)
+    dx, dw, db = _routed(deconv2x2_backward, True,
+                         lambda: _repeat(lambda: deconv2x2_backward(x, dy, wt)))
+    dx_ref, dw_ref, db_ref = deconv2x2_backward_plain(x, dy, wt)
+    assert dx.dtype == torch.bfloat16 and dw.shape == (cin, 2, 2, cout) and dw.dtype == torch.float32
+    _close(dx, dx_ref, torch.bfloat16)
+    assert _rel_l2(dw, dw_ref) <= _RED_TOL[torch.bfloat16]
+    assert _rel_l2(db, db_ref) <= _RED_TOL[torch.bfloat16]
+
+
+def test_deconv_tensor_core_autograd_sliced_cotangent(dev):
+    """deconv2x2 under autograd on the tensor cores, padded to an odd skip
+    as the UNet pads it, so that K3-bwd's cotangent is a slice of the
+    padded gradient; on a side stream."""
+    import torch.nn.functional as F
+
+    from sports_field_homography_tpu_torch.ops.deconv import (deconv2x2_backward,
+                                                              deconv2x2_backward_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(38)
+    x = _rand(gen, (2, 22, 40, 128), dev).bfloat16().requires_grad_()
+    wt = _rand(gen, (128, 2, 2, 64), dev, 128 ** -0.5).requires_grad_()   # f32, as a parameter
+    b = _rand(gen, (64,), dev, 0.1).requires_grad_()
+    g = _rand(gen, (2, 45, 81, 64), dev).bfloat16()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = _routed(deconv2x2, True, lambda: deconv2x2(x, wt, b))
+        _routed(deconv2x2_backward, True,
+                lambda: F.pad(y, (0, 0, 0, 1, 0, 1)).backward(g))
+    torch.cuda.current_stream().wait_stream(side)
+    dx_ref, dw_ref, db_ref = deconv2x2_backward_plain(x.detach(), g[:, :44, :80], wt.detach())
+    _close(x.grad, dx_ref, torch.bfloat16)
+    assert _rel_l2(wt.grad, dw_ref) <= _RED_TOL[torch.bfloat16]
+    assert _rel_l2(b.grad, db_ref) <= _RED_TOL[torch.bfloat16]
+
+
+def test_deconv_route_counters(dev):
+    """bf16 with Cin and Cout multiples of 64 counts a tensor-core K3 or
+    K3-bwd launch; an odd channel count in bf16 and every f32 call do not."""
+    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2_backward
+
+    gen = torch.Generator(device=dev).manual_seed(39)
+    x64, x48 = _rand(gen, (1, 5, 6, 64), dev), _rand(gen, (1, 5, 6, 48), dev)
+    w64, w48 = _rand(gen, (64, 2, 2, 64), dev, 0.1), _rand(gen, (48, 2, 2, 64), dev, 0.1)
+    b, dy = _rand(gen, (64,), dev), _rand(gen, (1, 10, 12, 64), dev)
+    bf = torch.bfloat16
+    _routed(deconv2x2, True, lambda: deconv2x2(x64.to(bf), w64.to(bf), b))
+    _routed(deconv2x2, False, lambda: deconv2x2(x64, w64, b))
+    _routed(deconv2x2, False, lambda: deconv2x2(x48.to(bf), w48.to(bf), b))
+    _routed(deconv2x2_backward, True,
+            lambda: deconv2x2_backward(x64.to(bf), dy.to(bf), w64.to(bf)))
+    _routed(deconv2x2_backward, False, lambda: deconv2x2_backward(x64, dy, w64))
+    _routed(deconv2x2_backward, False,
+            lambda: deconv2x2_backward(x48.to(bf), dy.to(bf), w48.to(bf)))
