@@ -26,7 +26,7 @@ its seconds:
      K2+stats     64->64 at 360x640 with the prologue, 1024->512 at 45x80;
      K5 wgrad     64->64 at 360x640 with and without the prologue, 128->128
                   at 180x320, 1024->512 at 45x80;
-     K7-bwd       360x640x64;
+     K7-bwd       360x640x64 (and every UNet level in the levels phase);
      K3-bwd       the same four up-convs;
      K7-fwd       stats of 360x640x64 (f32, the stem's output, and bf16),
                   norm of 360x640x64 (f32: equal bit for bit; bf16);
@@ -43,12 +43,15 @@ its seconds:
    and K3-bwd have two routes, and each call here asserts the one it took:
    f32 on the SIMT kernels (conv3x3.cu, wgrad3x3.cu, deconv2x2.cu), bf16
    on the tensor-core kernels (conv3x3_sm90.cu, wgrad3x3_sm90.cu,
-   deconv2x2_sm90.cu).  K3 and K3-bwd are timed here in f32; then each
+   deconv2x2_sm90.cu); K1 and K7-bwd at these shapes must take their
+   16-byte routes (``vec_launches``).  K1 and K7-bwd are also timed bare,
+   from a CUDA graph of back-to-back calls (``graph_ms``), which leaves the
+   host's per-call cost out.  K3 and K3-bwd are timed here in f32; then each
    bf16 UNet level's K2 (one- and two-input, prologue, stats, dgrad), K5,
-   K3 and K3-bwd on the tensor cores, checked and timed beside its library
-   call and bound (``K2_LEVELS``, ``K5_LEVELS``, ``K3_LEVELS``; the K3 and
-   K3-bwd entries of the kernels line are their sums over the four
-   up-convs).
+   K3 and K3-bwd on the tensor cores, and K7-bwd (whole and bare), checked
+   and timed beside its library call and bound (``K2_LEVELS``,
+   ``K5_LEVELS``, ``K3_LEVELS``, ``K7_LEVELS``; the K3 and K3-bwd entries
+   of the kernels line are their sums over the four up-convs).
 4. predict: 16 seeded 640x360 PNG frames, a seeded resnet34 img+mask model
    saved as .pth, the predict CLI in-process (bf16, theta + consistency,
    batch 8, NCAA court).  Checks 16 finite records and that K1, K2 (one-
@@ -57,7 +60,9 @@ its seconds:
    2e-4, score <= 1e-3.  Prints the device time of a batch of 8.  Every
    bf16 K2, K5, K3 and K3-bwd launch of the predict, train and test-CLI
    phases must take the tensor-core route (``tc_launches`` ==
-   ``launches``), every f32 one of the parity runs the SIMT route.
+   ``launches``), every f32 one of the parity runs the SIMT route; every
+   K1 launch of the predict and test-CLI runs and every K7-bwd call of the
+   bf16 train runs the 16-byte route.
 5. train: a seeded synthetic 640x360 set (24 train, 8 validation frames),
    a JSON conf (the flagship, bf16, the example conf's losses and RMSprop,
    consist_start_iter 0), the train CLI in-process: 3 steps at batch 8 and
@@ -165,6 +170,36 @@ def cuda_ms(fn, warmup: int = 2, runs: int = 7) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, n: int = 20, runs: int = 5) -> float:
+    """Median device milliseconds of one ``fn()`` with the host out of the
+    way: ``n`` calls captured back to back in one CUDA graph (the wrappers
+    launch on the current stream, which under capture is the capturing
+    one), the graph replayed between two CUDA events, divided by ``n``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # warm-up off the default stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
 def phase_device():
     import torch
 
@@ -221,6 +256,19 @@ def routed(kernel, tc, call):
     return out
 
 
+def vec_routed(kernel, call):
+    """``call()``, which must call ``kernel`` (``warp_nearest`` or
+    ``bn_relu_bwd``) at least once, every call on its 16-byte route.
+    Returns what ``call`` returned."""
+    n0, v0 = kernel.launches, kernel.vec_launches
+    out = call()
+    n, v = kernel.launches - n0, kernel.vec_launches - v0
+    if n <= 0 or v != n:
+        raise AssertionError(f"{kernel.__name__}: {v} of {n} calls took the 16-byte route, "
+                             "expected all")
+    return out
+
+
 def phase_kernels(dev, card):
     """Each kernel against its plain version at the path's shapes."""
     import torch
@@ -248,28 +296,37 @@ def phase_kernels(dev, card):
                                         [0.05, 0.05, 0.0]], device=dev)
     k1_err, k1_ms = 0.0, None
     for sample in (None, (360, 640)):
-        got = warp_nearest(labels, theta, (720, 1280), values, sample)
+        def run():
+            return warp_nearest(labels, theta, (720, 1280), values, sample)
+
+        got = vec_routed(warp_nearest, run)
         ref = warp_nearest_plain(labels, theta, (720, 1280), values, sample)
         torch.cuda.synchronize()
         n_diff = int((got != ref).sum().item())
         covered = float((got > 0).float().mean().item())
         if n_diff:
             raise AssertionError(f"K1 warp sample_hw={sample}: {n_diff} labels differ")
-        ms = cuda_ms(lambda: warp_nearest(labels, theta, (720, 1280), values, sample))
+        ms, bare = cuda_ms(run), graph_ms(run)
         pms = cuda_ms(lambda: warp_nearest_plain(labels, theta, (720, 1280), values, sample))
+        bnd = bound(0, nbytes(labels, theta, got))
         log(f"K1 warp_nearest 1280x720 sample_hw={sample} B={BATCH}: labels equal "
-            f"({got.numel()} samples, {covered:.1%} on the court); "
-            f"kernel {ms:.4f} ms, plain {pms:.4f} ms [{card}]")
+            f"({got.numel()} samples, {covered:.1%} on the court), float4 stores; kernel "
+            f"{ms:.4f} ms timed whole, {bare:.4f} ms bare (CUDA graph of 20), plain {pms:.4f} "
+            f"ms; bound {bnd[0]:.4f} ms ({bnd[1]}), bare / bound {bare / bnd[0]:.2f} [{card}]")
         if sample is not None:
             k1_ms = (ms, pms)
-            bnd = bound(0, nbytes(labels, theta, got))
     # yardstick: F.grid_sample(nearest) of the float template at the same
     # sample points (grid made beforehand, not timed)
     grid = subsampled_warp_grid(theta, (720, 1280), (360, 640))
     tmpl = labels.float().expand(BATCH, 1, 720, 1280).contiguous()
-    lib = cuda_ms(lambda: F.grid_sample(tmpl, grid, mode="nearest", align_corners=False))
-    log(f"K1 library F.grid_sample(nearest) at the sampled grid: {lib:.4f} ms; bound "
-        f"{bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+
+    def library():
+        return F.grid_sample(tmpl, grid, mode="nearest", align_corners=False)
+
+    lib = cuda_ms(library)
+    log(f"K1 library F.grid_sample(nearest) at the sampled grid: {lib:.4f} ms timed whole, "
+        f"{graph_ms(library):.4f} ms bare (CUDA graph of 20); kernel / library timed whole "
+        f"{k1_ms[0] / lib:.2f} [{card}]")
     results["warp_nearest"] = entry(k1_err, *k1_ms, lib, bnd)
     del tmpl, grid
     # a template that skips a label ({0, 2} of 4 classes): the value table
@@ -418,6 +475,7 @@ def phase_predict(dev, card, work, bilinear=False):
     for fn in kernels.values():
         fn.launches = 0
     conv3x3.dual_launches = conv3x3.tc_launches = deconv2x2.tc_launches = 0
+    warp_nearest.vec_launches = 0
     stats = predict_cli.process(
         ["--img_dir", frames, "--load", ckpt, "--dst_dir", dst,
          "--req_outputs", "theta,consistency", "--batchsize", str(BATCH),
@@ -425,10 +483,13 @@ def phase_predict(dev, card, work, bilinear=False):
     launches = _predict_launches(kernels)
     log(f"predict {variant}: kernel launches in the CLI run: {launches}; on the tensor "
         f"cores: K2 {conv3x3.tc_launches} of {conv3x3.launches}, K3 {deconv2x2.tc_launches} of "
-        f"{deconv2x2.launches}")
+        f"{deconv2x2.launches}; K1 on the float4 stores: {warp_nearest.vec_launches} of "
+        f"{warp_nearest.launches}")
     if conv3x3.tc_launches != conv3x3.launches or deconv2x2.tc_launches != deconv2x2.launches:
         raise AssertionError(f"predict {variant}: a bf16 K2 or K3 launch left the tensor-core "
                              "route")
+    if warp_nearest.vec_launches != warp_nearest.launches:
+        raise AssertionError(f"predict {variant}: a K1 launch left the float4 route")
     for name, n in launches.items():
         if n <= 0 and not (bilinear and name == "deconv2x2"):
             raise AssertionError(f"predict {variant}: {name} was never launched by the path")
@@ -644,20 +705,23 @@ def phase_train_kernels(dev, card):
     gamma = torch.rand((c,), generator=gen, device=dev) + 0.5
     beta = rnd(c, scale=0.3)
     vecs = (mean, rstd, gamma, beta)
-    dx, dgam, dbet = bn_relu_bwd(y, g, *vecs)
+    dx, dgam, dbet = vec_routed(bn_relu_bwd, lambda: bn_relu_bwd(y, g, *vecs))
     dx_ref, _, _ = bn_relu_bwd_plain(y, g, *vecs)
     _, dgam64, dbet64 = bn_relu_bwd_plain(y.double(), g.double(), *map(lambda v: v.double(), vecs))
     e = _compare("K7-bwd f32 dx", dx, dx_ref, 1e-4, 1e-4)
     r = max(_reduction("K7-bwd f32 dgamma", dgam, dgam64, 1e-5),
             _reduction("K7-bwd f32 dbeta", dbet, dbet64, 1e-5))
+    ms32 = cuda_ms(lambda: bn_relu_bwd(y, g, *vecs))
+    del dgam64, dbet64
     yb, gb = y.bfloat16(), g.bfloat16()
-    dxb, dgamb, dbetb = bn_relu_bwd(yb, gb, *vecs)
+    dxb, dgamb, dbetb = vec_routed(bn_relu_bwd, lambda: bn_relu_bwd(yb, gb, *vecs))
     dxb_ref, dgamb_ref, dbetb_ref = bn_relu_bwd_plain(yb, gb, *vecs)
     eb = _compare("K7-bwd bf16 dx", dxb, dxb_ref, 2e-2, 2e-2)
     rb = max(_reduction("K7-bwd bf16 dgamma", dgamb, dgamb_ref, 1e-3),
              _reduction("K7-bwd bf16 dbeta", dbetb, dbetb_ref, 1e-3))
     rep = _repeats_bitwise("K7-bwd", lambda: bn_relu_bwd(yb, gb, *vecs))
     ms = cuda_ms(lambda: bn_relu_bwd(yb, gb, *vecs))
+    bare = graph_ms(lambda: bn_relu_bwd(yb, gb, *vecs), n=10)
     pms = cuda_ms(lambda: bn_relu_bwd_plain(yb, gb, *vecs))
     # yardstick: the autograd of relu(F.batch_norm(training=True)) on the
     # same bf16 input (its forward made beforehand, not timed)
@@ -667,11 +731,14 @@ def phase_train_kernels(dev, card):
     gn = nchw(gb)
     lib = cuda_ms(lambda: torch.autograd.grad(out, (yl, gl, bl), gn, retain_graph=True))
     bnd = bound(0, nbytes(yb, gb, dxb))
+    floor = nbytes(yb, gb, yb, gb, dxb) / HBM * 1e3     # two passes: y and g read twice
     log(f"K7-bwd bn_relu_bwd 360x640x{c}: f32 dx max abs err {e:.2e}, sums rel-L2 "
         f"{r:.2e} (vs float64); bf16 dx max abs err {eb:.2e}, sums rel-L2 {rb:.2e}; "
-        f"{rep}; bf16 kernel {ms:.3f} ms, plain (torch elementwise + sums) {pms:.3f} ms, "
-        f"library (autograd of F.batch_norm + ReLU) {lib:.3f} ms; bound {bnd[0]:.3f} ms "
-        f"({bnd[1]}) [{card}]")
+        f"{rep}; 16-byte route, 3 launches a call; bf16 kernel {ms:.3f} ms timed whole, "
+        f"{bare:.3f} ms bare (CUDA graph of 10); f32 kernel {ms32:.3f} ms; plain (torch "
+        f"elementwise + sums) {pms:.3f} ms, library (autograd of F.batch_norm + ReLU) "
+        f"{lib:.3f} ms; bound {bnd[0]:.3f} ms ({bnd[1]}), two-pass floor {floor:.3f} ms; "
+        f"bare / two-pass floor {bare / floor:.2f} [{card}]")
     results["bn_relu_bwd"] = entry(max(e, eb), ms, pms, lib, bnd)
     del out, yl, gn
     del y, g, dx, dx_ref, yb, gb, dxb, dxb_ref
@@ -846,21 +913,26 @@ K5_LEVELS = (("64->64", 360, 640, 64, 64, False), ("64->64 +prologue", 360, 640,
 # the UNet's four up-convs (K3, K3-bwd) at 640x360: (tag, H, W, Cin), Cout = Cin / 2
 K3_LEVELS = (("up1 1024->512", 22, 40, 1024), ("up2 512->256", 45, 80, 512),
              ("up3 256->128", 90, 160, 256), ("up4 128->64", 180, 320, 128))
+# K7-bwd at each UNet level at 640x360: (H, W, C)
+K7_LEVELS = ((360, 640, 64), (180, 320, 128), (90, 160, 256), (45, 80, 512), (22, 40, 1024))
 
 
 def phase_levels(dev, card):
-    """The tensor-core K2, K5, K3 and K3-bwd at each UNet level's bf16 shape
-    (batch 8): each against its plain version, timed beside one library
-    call (for K2 ``F.conv2d`` channels_last on the same operands -- the
-    concat for two inputs, the flipped weights for a dgrad -- without the
-    prologue or the stats, which no single call computes; for K5
-    ``torch.nn.grad.conv2d_weight``; for K3 ``F.conv_transpose2d`` and for
-    K3-bwd its autograd) and its bound.  Returns the kernels-line entries of
+    """The tensor-core K2, K5, K3 and K3-bwd, and K7-bwd on its 16-byte
+    route, at each UNet level's bf16 shape (batch 8): each against its plain
+    version, timed beside one library call (for K2 ``F.conv2d``
+    channels_last on the same operands -- the concat for two inputs, the
+    flipped weights for a dgrad -- without the prologue or the stats, which
+    no single call computes; for K5 ``torch.nn.grad.conv2d_weight``; for K3
+    ``F.conv_transpose2d`` and for K3-bwd its autograd; for K7-bwd the
+    autograd of ``F.batch_norm`` + ReLU, and its bare time from a CUDA
+    graph) and its bound.  Returns the kernels-line entries of
     K3 and K3-bwd: times, library times and bounds summed over the four
     up-convs."""
     import torch
     import torch.nn.functional as F
 
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd, bn_relu_bwd_plain
     from sports_field_homography_tpu_torch.ops.conv3x3 import (
         conv3x3, conv3x3_plain, dgrad_weights)
     from sports_field_homography_tpu_torch.ops.deconv import (
@@ -877,7 +949,7 @@ def phase_levels(dev, card):
                 torch.rand((c,), generator=gen, device=dev) + 0.5,
                 torch.randn((c,), generator=gen, device=dev) * 0.1)
 
-    rows = []
+    rows, k7_rows = [], []
     for tag, h, w, cin, cin2, cout, pro_on, st, dgrad in K2_LEVELS:
         x = rnd(BATCH, h, w, cin)
         x2 = rnd(BATCH, h, w, cin2) if cin2 else None
@@ -935,6 +1007,40 @@ def phase_levels(dev, card):
             f"({bnd[1]}); kernel / library {ms / lib:.2f}, kernel / bound {ms / bnd[0]:.2f} "
             f"[{card}]")
         del x, dy, dw, db, dw_ref
+    for h, w, c in K7_LEVELS:
+        y = (torch.randn((BATCH, h, w, c), generator=gen, device=dev) * 2.0 + 0.3).bfloat16()
+        g = rnd(BATCH, h, w, c)
+        yf = y.float()
+        mean = yf.mean(dim=(0, 1, 2))
+        vecs = (mean, torch.rsqrt((yf * yf).mean(dim=(0, 1, 2)) - mean * mean + 1e-5),
+                torch.rand((c,), generator=gen, device=dev) + 0.5,
+                torch.randn((c,), generator=gen, device=dev) * 0.3)
+        del yf
+
+        def run():
+            return bn_relu_bwd(y, g, *vecs)
+
+        dx, dgam, dbet = vec_routed(bn_relu_bwd, run)
+        dx_ref, dgam_ref, dbet_ref = bn_relu_bwd_plain(y, g, *vecs)
+        err = _compare(f"K7-bwd bf16 dx {h}x{w}x{c}", dx, dx_ref, 2e-2, 2e-2)
+        rel = max(_reduction(f"K7-bwd bf16 {h}x{w}x{c} dgamma", dgam, dgam_ref, 1e-3),
+                  _reduction(f"K7-bwd bf16 {h}x{w}x{c} dbeta", dbet, dbet_ref, 1e-3))
+        _repeats_bitwise(f"K7-bwd bf16 {h}x{w}x{c}", run)
+        ms, bare = cuda_ms(run), graph_ms(run, n=10)
+        yl = nchw(y).detach().requires_grad_()
+        gl, bl = vecs[2].clone().requires_grad_(), vecs[3].clone().requires_grad_()
+        out = torch.relu(F.batch_norm(yl, None, None, gl, bl, training=True, eps=1e-5))
+        gn = nchw(g)
+        lib = cuda_ms(lambda: torch.autograd.grad(out, (yl, gl, bl), gn, retain_graph=True))
+        bnd = bound(0, nbytes(y, g, dx))
+        rows.append(("K7-bwd", f"{c} channels", f"{h}x{w}", ms, lib, bnd))
+        k7_rows.append((f"{h}x{w}x{c}", ms, bare, lib, bnd[0]))
+        log(f"level K7-bwd bf16 {h}x{w}x{c}: dx max abs err {err:.2e}, sums rel-L2 {rel:.2e}, "
+            f"bitwise repeat, 16-byte route; kernel {ms:.3f} ms timed whole, {bare:.3f} ms "
+            f"bare (CUDA graph of 10), library (autograd of F.batch_norm + ReLU) {lib:.3f} ms, "
+            f"bound {bnd[0]:.3f} ms ({bnd[1]}); whole / library {ms / lib:.2f}, bare / bound "
+            f"{bare / bnd[0]:.2f} [{card}]")
+        del y, g, dx, dx_ref, yl, out, gn
     # K3 and K3-bwd: [max abs err, ms, plain ms, library ms, flops, bytes]
     sums = {"deconv2x2": [0.0] * 6, "deconv2x2_backward": [0.0] * 6}
 
@@ -994,6 +1100,9 @@ def phase_levels(dev, card):
     log("levels table (kernel | shape | level | kernel ms | library ms | bound ms | bound by):")
     for k, tag, lvl, ms, lib, bnd in rows:
         log(f"| {k} | {tag} | {lvl} | {ms:.3f} | {lib:.3f} | {bnd[0]:.3f} | {bnd[1]} |")
+    log("K7_LEVELS (level | timed whole ms | bare ms | library ms | bound ms):")
+    for lvl, ms, bare, lib, bnd in k7_rows:
+        log(f"| {lvl} | {ms:.3f} | {bare:.3f} | {lib:.3f} | {bnd:.3f} |")
     results = {}
     for name, (err, ms, pms, lib, flops, n_bytes) in sums.items():
         bnd = bound(flops, n_bytes)
@@ -1246,6 +1355,7 @@ def phase_train(dev, card, work, bilinear=False):
         fn.launches = 0
     conv3x3.stats_launches = conv3x3.dual_launches = conv3x3.tc_launches = 0
     wgrad3x3.tc_launches = deconv2x2.tc_launches = deconv2x2_backward.tc_launches = 0
+    bn_relu_bwd.vec_launches = 0
     t0 = time.perf_counter()
     hist = train_cli.main(["-c", conf])
     torch.cuda.synchronize()
@@ -1256,10 +1366,14 @@ def phase_train(dev, card, work, bilinear=False):
     routes = {k: (counters[k].tc_launches, counters[k].launches)
               for k in ("conv3x3", "wgrad3x3", "deconv2x2", "deconv2x2_backward")}
     log(f"train {variant}: kernel launches in the CLI run: {launches}; on the tensor cores: "
-        + ", ".join(f"{k} {t} of {n}" for k, (t, n) in routes.items()))
+        + ", ".join(f"{k} {t} of {n}" for k, (t, n) in routes.items())
+        + f"; K7-bwd on the 16-byte route: {bn_relu_bwd.vec_launches} of "
+        f"{bn_relu_bwd.launches}")
     if any(t != n for t, n in routes.values()):
         raise AssertionError(f"train {variant}: a bf16 K2, K5, K3 or K3-bwd launch left the "
                              "tensor-core route")
+    if bn_relu_bwd.vec_launches != bn_relu_bwd.launches:
+        raise AssertionError(f"train {variant}: a bf16 K7-bwd call left the 16-byte route")
     deconv_only = ("deconv2x2", "deconv2x2_backward")
     for name, n in launches.items():
         if n <= 0 and not (bilinear and name in deconv_only):
@@ -1459,17 +1573,21 @@ def phase_test_cli(dev, card, work, cp_dir, data):
     for fn in kernels.values():
         fn.launches = 0
     conv3x3.dual_launches = conv3x3.tc_launches = deconv2x2.tc_launches = 0
+    warp_nearest.vec_launches = 0
     reconstructor.warp_nearest = recording_k1
     try:
         res = test_cli.main(argv + ["--device", "cuda"])["1"]
     finally:
         reconstructor.warp_nearest = k1
     launches = _predict_launches(kernels)
-    log(f"test CLI: kernel launches in the run: {launches}; K1 grids {sorted(set(grids))}; "
-        f"on the tensor cores: K2 {conv3x3.tc_launches} of {conv3x3.launches}, K3 "
+    log(f"test CLI: kernel launches in the run: {launches}; K1 grids {sorted(set(grids))}, "
+        f"{warp_nearest.vec_launches} of {warp_nearest.launches} on the float4 stores; on the "
+        f"tensor cores: K2 {conv3x3.tc_launches} of {conv3x3.launches}, K3 "
         f"{deconv2x2.tc_launches} of {deconv2x2.launches}")
     if conv3x3.tc_launches != conv3x3.launches or deconv2x2.tc_launches != deconv2x2.launches:
         raise AssertionError("test CLI: a bf16 K2 or K3 launch left the tensor-core route")
+    if warp_nearest.vec_launches != warp_nearest.launches:
+        raise AssertionError("test CLI: a K1 launch left the float4 route")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"test CLI: {name} was never launched")
@@ -1608,7 +1726,7 @@ def main() -> int:
     kres = run("kernels", phase_kernels, dev, card)
     kres.update(run("train kernels", phase_train_kernels, dev, card))
     kres.update(run("K7-fwd and two-input K2", phase_fwd_kernels, dev, card))
-    kres.update(run("K2, K5 and K3 levels", phase_levels, dev, card))
+    kres.update(run("K2, K5, K3 and K7-bwd levels", phase_levels, dev, card))
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)

@@ -35,33 +35,6 @@ namespace {
 
 constexpr int kBnThreads = 256;
 
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
-  if constexpr (VEC * sizeof(T) == 16) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[i] = to_f32(e[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[i] = to_f32(p[i]);
-  }
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VEC]) {
-  if constexpr (VEC * sizeof(T) == 16) {
-    uint4 raw;
-    T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) e[i] = from_f32<T>(v[i]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) p[i] = from_f32<T>(v[i]);
-  }
-}
-
 // Block: gpb channel groups (VEC channels each) x (256 / gpb) row lanes,
 // over rows [blockIdx.y * rows_per_block, +rows_per_block).
 template <typename T, int VEC>

@@ -2,11 +2,11 @@
 // of every cross-block reduction in the training kernels.
 //
 // Replaces nothing by itself.  The TPU kernels (conv3x3_pallas.py:238-243
-// and :331-340, bn_pallas.py:142-147, deconv_pallas.py:137-147) carry their
+// and :331-340, bn_pallas.py:107-118, deconv_pallas.py:137-147) carry their
 // sums across a sequential grid in one revisited output block.  On Hopper
 // the blocks of a kernel run in parallel and in no fixed order, so each
-// block of K2+stats, K5, K7-bwd and K3-bwd writes its partial sums to its
-// own row of a scratch matrix, and this kernel adds the rows up in a fixed
+// block of K2+stats, K5, K7-fwd's stats and K3-bwd writes its partial sums
+// to its own row of a scratch matrix, and this kernel adds the rows up in a fixed
 // order: no float atomics, so two runs on the same input are bitwise
 // equal.
 //

@@ -35,6 +35,36 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+// VEC adjacent values widened to f32: one 16-byte load where VEC values of
+// T fill 16 bytes (the pointer then 16-byte aligned), else VEC scalar loads.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[i] = to_f32(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[i] = to_f32(p[i]);
+  }
+}
+
+// The converse: VEC f32 values rounded to T, stored as load_vec reads them.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VEC]) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) e[i] = from_f32<T>(v[i]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) p[i] = from_f32<T>(v[i]);
+  }
+}
+
 struct TileSmem {
   float a[kBK][kBM + kPadA];   // A tile, stored k-major: a[k][m]
   float b[kBK][kBN];           // B tile: b[k][n]

@@ -6,6 +6,8 @@ raises: there is no fallback from a failed kernel to the plain version.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -37,10 +39,21 @@ def dtype_code(dtype: torch.dtype) -> int:
     return _DTYPE_CODES[dtype]
 
 
+def on_device(device: torch.device):
+    """A context that makes ``device`` the current CUDA device: a no-op
+    where it already is, ``torch.cuda.device(device)`` otherwise."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def stream_handle(device: torch.device) -> int:
-    """PyTorch's current stream on ``device``; kernels launch on it (under
-    ``torch.cuda.device(device)``) and never synchronise."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device`` as a raw ``cudaStream_t``;
+    kernels launch on it (under ``torch.cuda.device(device)``) and never
+    synchronise.  Read with the call PyTorch's own generated kernels use,
+    which skips building a ``torch.cuda.Stream`` (a few microseconds a
+    launch on the host)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:

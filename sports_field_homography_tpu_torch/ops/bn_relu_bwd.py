@@ -9,9 +9,12 @@ Port of ``ops/bn_pallas.py::_bwd_reduce_kernel`` and ``::_dx_kernel`` as
 
 over the M = N*H*W pixels, per channel.  The ReLU mask is recomputed in
 f32 from y, each operation rounded on its own in this order, so the CUDA
-kernel (``csrc/bn_relu_bwd.cu``) and the plain version below agree on
-every mask bit.  The kernel's per-block sums are added by
-``ops/reduce.column_sums`` in a fixed order (no float atomics).
+kernels (``csrc/bn_relu_bwd.cu``) and the plain version below agree on
+every mask bit.  One call makes three launches: the sums pass, a fixed-
+order sum of its per-block partials (no float atomics: bitwise
+repeatable), and the dx pass.  Both passes walk contiguous row chunks
+(``row_schedule``) with one thread per channel group: 16 bytes a row on
+the vector route (``vector_route``), one channel on the scalar route.
 """
 from __future__ import annotations
 
@@ -21,9 +24,39 @@ import torch
 
 from . import _dispatch
 from .build import check, load_library
-from .reduce import column_sums, rows_per_block
 
-__all__ = ["bn_relu_bwd", "bn_relu_bwd_plain"]
+__all__ = ["bn_relu_bwd", "bn_relu_bwd_plain", "vector_route", "row_lanes",
+           "row_schedule"]
+
+_THREADS = 256                 # threads a block (kThreads in the source)
+_TARGET_BLOCKS = 132 * 4       # blocks a pass: four per SM of an H100
+_MAX_RUN = 4096                # rows one thread sums in sequence, at most
+_ITEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def vector_route(dtype: torch.dtype, c: int, *ptrs: int) -> bool:
+    """True where a thread moves 16 bytes a row: C a multiple of the values
+    16 bytes hold (8 bf16, 4 f32) and every pointer (y, g, dx) 16-byte
+    aligned."""
+    return c % (16 // _ITEM_BYTES[dtype]) == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+def row_lanes(c: int, width: int) -> int:
+    """Row lanes of a block: 256 threads over min(C / width, 256) channel
+    groups of ``width`` channels (8 or 4 on the vector route, 1 on the
+    scalar one)."""
+    return _THREADS // min(c // width, _THREADS)
+
+
+def row_schedule(m: int, lanes: int, target_blocks: int = _TARGET_BLOCKS):
+    """(chunk, blocks): each block walks ``chunk`` contiguous rows (the last
+    block what is left), its ``lanes`` row lanes taking every lanes-th row
+    in order.  About ``target_blocks`` blocks fill the card; a chunk is a
+    whole number of lane sweeps, and no lane sums more than _MAX_RUN rows in
+    sequence (an f32 running sum over n terms drifts like sqrt(n) ulps)."""
+    chunk = -(-m // target_blocks)
+    chunk = min(-(-chunk // lanes) * lanes, _MAX_RUN * lanes)
+    return chunk, -(-m // chunk)
 
 
 def _check(y, g, mean):
@@ -71,34 +104,27 @@ def bn_relu_bwd(y: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
     m = n * h * w
     _dispatch.check_pixels(n, h, w)
     y = y.contiguous()
-    g = g.to(y.dtype).contiguous()
-    mean, rstd, gamma, beta = (t.float().contiguous()
-                               for t in (mean, rstd, gamma, beta))
+    g = (g if g.dtype == y.dtype else g.to(y.dtype)).contiguous()
+    mean, rstd, gamma, beta = [t if t.dtype == torch.float32 and t.is_contiguous()
+                               else t.float().contiguous() for t in (mean, rstd, gamma, beta)]
     dx = torch.empty_like(y)
-    if m == 0:
+    if m == 0 or c == 0:
         zeros = torch.zeros(c, dtype=torch.float32, device=y.device)
         return dx, zeros, zeros.clone()
-    rpb = rows_per_block(m)
-    part = torch.empty((-(-m // rpb), 2 * c), dtype=torch.float32, device=y.device)
-    lib = load_library()
-    stream = _dispatch.stream_handle(y.device)
-    with torch.cuda.device(y.device):
-        check(lib.sfh_bn_relu_bwd_reduce(
+    vec = vector_route(y.dtype, c, y.data_ptr(), g.data_ptr(), dx.data_ptr())
+    chunk, blocks = row_schedule(m, row_lanes(c, 16 // _ITEM_BYTES[y.dtype] if vec else 1))
+    part = torch.empty((blocks, 2 * c), dtype=torch.float32, device=y.device)
+    sums = torch.empty(2 * c, dtype=torch.float32, device=y.device)
+    with _dispatch.on_device(y.device):
+        check(load_library().sfh_bn_relu_bwd(
             y.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), part.data_ptr(), m, c, rpb,
-            code_dt, stream), "bn_relu_bwd (reduce)")
-        sums = column_sums(part)
-        dbeta, dgamma = sums[:c], sums[c:]
-        c1 = gamma * rstd
-        m1 = dbeta / m
-        m2 = dgamma / m
-        check(lib.sfh_bn_relu_bwd_dx(
-            y.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), c1.data_ptr(), m1.data_ptr(),
-            m2.data_ptr(), dx.data_ptr(), m, c, code_dt, stream),
-            "bn_relu_bwd (dx)")
+            gamma.data_ptr(), beta.data_ptr(), part.data_ptr(), sums.data_ptr(),
+            dx.data_ptr(), m, c, chunk, int(vec), code_dt,
+            _dispatch.stream_handle(y.device)), "bn_relu_bwd")
     bn_relu_bwd.launches += 1
-    return dx, dgamma, dbeta
+    bn_relu_bwd.vec_launches += vec
+    return dx, sums[c:], sums[:c]
 
 
 bn_relu_bwd.launches = 0
+bn_relu_bwd.vec_launches = 0    # the subset of calls on the 16-byte route

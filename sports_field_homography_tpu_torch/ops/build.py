@@ -38,7 +38,7 @@ _F = ctypes.c_float
 # C signatures: name -> argtypes (every function returns an int error code)
 _SIGNATURES = {
     "sfh_warp_nearest": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _P, _P, _P],
+                         _F, _F, _F, _F, _P, _P, _I, _P],
     "sfh_conv3x3": [_P] * 10 + [_I] * 7 + [_P],
     "sfh_conv3x3_sm90": [_P] * 10 + [_I] * 6 + [_P],
     "sfh_wgrad3x3_sm90": [_P] * 3 + [_I] * 7 + [_P],
@@ -47,8 +47,7 @@ _SIGNATURES = {
     "sfh_deconv2x2_sm90": [_P] * 4 + [_I] * 5 + [_P],
     "sfh_deconv2x2_bwd_sm90": [_P] * 5 + [_I] * 7 + [_P],
     "sfh_wgrad3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "sfh_bn_relu_bwd_reduce": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sfh_bn_relu_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "sfh_bn_relu_bwd": [_P] * 9 + [_I] * 5 + [_P],
     "sfh_bn_relu_stats": [_P, _P, _I, _I, _I, _I, _P],
     "sfh_bn_relu_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "sfh_sum_rows": [_P, _P, _I, _I, _I, _I, _P],

@@ -1,8 +1,8 @@
 """Deterministic column sums on the card (``csrc/sum_rows.cu``).
 
-The second pass of every cross-block reduction in the training kernels:
-each block of K2+stats, K5, K7-bwd and K3-bwd writes a row of partial
-sums, and ``column_sums`` adds the rows in a fixed order, one pass per
+The second pass of the cross-block reductions in the training kernels:
+each block of K2+stats, K5, K7-fwd's stats and K3-bwd writes a row of
+partial sums, and ``column_sums`` adds the rows in a fixed order, one pass per
 level of a tree of at most 65535-row chunks.  No float atomics: two runs on
 the same input are bitwise equal.  CUDA tensors only; the plain versions
 of those kernels take their sums with ``torch.sum``.

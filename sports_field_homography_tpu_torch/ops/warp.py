@@ -12,6 +12,8 @@ same coordinates with the same rounding, so the two agree label for label.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -20,9 +22,29 @@ from . import _dispatch
 from .build import check, load_library
 
 __all__ = ["warp_nearest", "warp_nearest_plain", "template_value_step",
-           "template_value_table"]
+           "template_value_table", "grid_constants", "vector_route"]
 
 _LABELS = 256          # uint8 labels
+_COLS = 4              # output columns a kernel thread stores as one float4
+
+
+@functools.lru_cache(maxsize=None)
+def grid_constants(out_hw, sample_hw=None):
+    """(x_step, y_step, x_ratio, y_ratio): the f32 constants of the warp
+    grid that ``geometry/warp.warp_grid`` and ``subsampled_warp_grid`` use,
+    ``f32(2 / (full - 1))`` per axis and the nearest-resize ratio
+    ``f32(full / sub)`` (1 without ``sample_hw``), as Python floats.
+    ``out_hw`` and ``sample_hw`` are (H, W) tuples."""
+    full_h, full_w = out_hw
+    ho, wo = sample_hw if sample_hw is not None else out_hw
+    return tuple(float(np.float32(v)) for v in
+                 (2.0 / (full_w - 1), 2.0 / (full_h - 1), full_w / wo, full_h / ho))
+
+
+def vector_route(wo: int, out_ptr: int) -> bool:
+    """True where the kernel stores each thread's columns as one 16-byte
+    float4: Wo a multiple of 4 and the output 16-byte aligned."""
+    return wo % _COLS == 0 and out_ptr % 16 == 0
 
 
 def template_value_step(labels: np.ndarray, num_classes: int) -> float:
@@ -106,22 +128,25 @@ def warp_nearest(template_labels: torch.Tensor, theta: torch.Tensor, out_hw,
     tmpl = template_labels.contiguous()
     values = values.contiguous()
     ht, wt = tmpl.shape
+    out_hw = tuple(out_hw)
+    sample_hw = None if sample_hw is None else tuple(sample_hw)
     full_h, full_w = out_hw
     ho, wo = sample_hw if sample_hw is not None else out_hw
     b = theta.shape[0]
     out = torch.empty((b, ho, wo), dtype=torch.float32, device=theta.device)
     if out.numel() == 0:
         return out
-    f32 = lambda v: float(np.float32(v))  # noqa: E731
-    with torch.cuda.device(out.device):
+    vec = vector_route(wo, out.data_ptr())
+    with _dispatch.on_device(out.device):
         code = load_library().sfh_warp_nearest(
-            tmpl.data_ptr(), ht, wt, theta.data_ptr(), b, ho, wo, full_h,
-            full_w, int(sample_hw is not None), f32(2.0 / (full_w - 1)),
-            f32(2.0 / (full_h - 1)), f32(full_w / wo), f32(full_h / ho),
-            values.data_ptr(), out.data_ptr(), _dispatch.stream_handle(out.device))
+            tmpl.data_ptr(), ht, wt, theta.data_ptr(), b, ho, wo, full_h, full_w,
+            int(sample_hw is not None), *grid_constants(out_hw, sample_hw),
+            values.data_ptr(), out.data_ptr(), int(vec), _dispatch.stream_handle(out.device))
     check(code, "warp_nearest")
     warp_nearest.launches += 1
+    warp_nearest.vec_launches += vec
     return out
 
 
 warp_nearest.launches = 0
+warp_nearest.vec_launches = 0    # the subset of launches on the float4 stores

@@ -689,3 +689,167 @@ def test_deconv_route_counters(dev):
     _routed(deconv2x2_backward, False, lambda: deconv2x2_backward(x64, dy, w64))
     _routed(deconv2x2_backward, False,
             lambda: deconv2x2_backward(x48.to(bf), dy.to(bf), w48.to(bf)))
+
+
+# ---- K1 and K7-bwd routes: 16-byte vectors where the shapes allow ------------
+
+def _vec_routed(kernel, vec, fn):
+    """fn() calls ``kernel`` (``warp_nearest`` or ``bn_relu_bwd``); every
+    call on the 16-byte route when ``vec``, none otherwise."""
+    n0, v0 = kernel.launches, kernel.vec_launches
+    out = fn()
+    n, v = kernel.launches - n0, kernel.vec_launches - v0
+    assert n > 0 and v == (n if vec else 0), (n, v)
+    return out
+
+
+@pytest.mark.parametrize("b,out_hw,sample_hw,vec", [
+    (1, (720, 1280), (360, 640), True),       # predict's sampled grid, one image
+    (26, (720, 1280), (360, 640), True),      # the conf's batch
+    (26, (360, 640), None, True),             # the test CLI's full grid
+    (3, (37, 642), None, False),              # Wo % 4 == 2: one float a store
+    (2, (720, 1280), (359, 641), False),      # Ws % 4 == 1
+])
+def test_warp_routes(dev, b, out_hw, sample_hw, vec):
+    """K1 labels equal the plain version's on both store routes, from a
+    non-contiguous template and a (B, 1, 3, 3) theta; B = 1 and 26.  The
+    wrapper allocates the output itself, so no offset output view reaches
+    the kernel."""
+    gen = torch.Generator(device=dev).manual_seed(40)
+    big = torch.randint(0, 4, (722, 1283), generator=gen, device=dev, dtype=torch.uint8)
+    labels = big[1:721, 2:1282]                                  # (720, 1280) view
+    theta = torch.eye(3, device=dev).repeat(b, 1, 1)
+    theta += _rand(gen, (b, 3, 3), dev, 0.1) * torch.tensor(
+        [[1.0, 1.0, 2.0], [1.0, 1.0, 2.0], [0.5, 0.5, 0.0]], device=dev)
+    if b > 2:
+        theta[1, 2] = torch.tensor([0.0, 0.0, -1e-9], device=dev)   # |z| <= eps
+        theta[2] = 0.0
+    values = torch.arange(256, dtype=torch.float32, device=dev) * 0.25
+    got = _vec_routed(warp_nearest, vec,
+                      lambda: warp_nearest(labels, theta[:, None], out_hw, values, sample_hw))
+    ref = warp_nearest_plain(labels.contiguous(), theta, out_hw, values, sample_hw)
+    assert got.shape == (b,) + tuple(sample_hw or out_hw)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def _bn_inputs(gen, shape, dtype, dev, offset=0):
+    """y, g and the per-channel vectors; ``offset`` > 0 puts y and g that
+    many elements into their buffers (contiguous views off the 16-byte
+    grid)."""
+    c, numel = shape[-1], int(np.prod(shape))
+
+    def buf(scale, shift):
+        t = torch.empty(numel + offset, device=dev, dtype=dtype)
+        t[offset:] = (_rand(gen, (numel,), dev, scale) + shift).to(dtype)
+        return t[offset:].view(shape)
+
+    y, g = buf(2.0, 0.3), buf(1.0, 0.0)
+    yf = y.float()
+    mean = yf.mean(dim=(0, 1, 2))
+    rstd = torch.rsqrt((yf * yf).mean(dim=(0, 1, 2)) - mean * mean + 1e-5)
+    return y, g, (mean, rstd, torch.rand(c, generator=gen, device=dev) + 0.5,
+                  _rand(gen, (c,), dev, 0.3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset,vec", [
+    ((2, 7, 9, 8), 0, True),            # one channel group
+    ((2, 33, 65, 64), 0, True),
+    ((1, 45, 80, 72), 0, True),         # 9 (bf16) or 18 (f32) groups: 256 threads do not divide
+    ((2, 5, 7, 1024), 0, True),         # 128 (bf16) or 256 (f32) groups, one or two row lanes
+    ((3, 97, 101, 64), 0, True),        # M = 29,391: the last chunk is ragged
+    ((1, 1, 1, 5), 0, False),
+    ((2, 7, 9, 33), 0, False),
+    ((3, 45, 80, 96), 1, False),        # C = 96 from a view off the 16-byte grid
+])
+def test_bn_relu_bwd_routes(dev, dtype, shape, offset, vec):
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd, bn_relu_bwd_plain
+
+    y, g, vecs = _bn_inputs(torch.Generator(device=dev).manual_seed(41), shape, dtype, dev,
+                            offset)
+    dx, dgam, dbet = _vec_routed(bn_relu_bwd, vec, lambda: _repeat(lambda: bn_relu_bwd(y, g, *vecs)))
+    dx_ref, _, _ = bn_relu_bwd_plain(y, g, *vecs)
+    ref64 = bn_relu_bwd_plain(y.double(), g.double(), *(v.double() for v in vecs))
+    assert dx.dtype == dtype and dx.shape == shape
+    _close(dx, dx_ref, dtype)
+    assert _rel_l2(dgam, ref64[1]) <= 1e-5 and _rel_l2(dbet, ref64[2]) <= 1e-5
+
+
+def test_bn_relu_bwd_batch26_deep_level(dev):
+    """The conf's batch 26 at the 45x80x512 level, bf16, vector route."""
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd, bn_relu_bwd_plain
+
+    y, g, vecs = _bn_inputs(torch.Generator(device=dev).manual_seed(42), (26, 45, 80, 512),
+                            torch.bfloat16, dev)
+    dx, dgam, dbet = _vec_routed(bn_relu_bwd, True, lambda: _repeat(lambda: bn_relu_bwd(y, g, *vecs)))
+    dx_ref, dgam_ref, dbet_ref = bn_relu_bwd_plain(y, g, *vecs)
+    _close(dx, dx_ref, torch.bfloat16)
+    assert _rel_l2(dgam, dgam_ref) <= _RED_TOL[torch.bfloat16]
+    assert _rel_l2(dbet, dbet_ref) <= _RED_TOL[torch.bfloat16]
+
+
+def test_bn_relu_bwd_side_stream(dev):
+    """The three launches go on the current stream: a call on a side stream
+    equals the same call on the default stream bit for bit."""
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd
+
+    y, g, vecs = _bn_inputs(torch.Generator(device=dev).manual_seed(43), (8, 45, 80, 64),
+                            torch.bfloat16, dev)
+    want = bn_relu_bwd(y, g, *vecs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = _vec_routed(bn_relu_bwd, True, lambda: bn_relu_bwd(y, g, *vecs))
+    torch.cuda.current_stream().wait_stream(side)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_k1_k7bwd_replay_in_a_cuda_graph(dev):
+    """Both wrappers launch on the capturing stream, so a CUDA graph of
+    their calls (how the smoke run times the bare kernels) replays to the
+    eager results."""
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(44)
+    labels = torch.randint(0, 4, (72, 128), generator=gen, device=dev, dtype=torch.uint8)
+    theta = torch.eye(3, device=dev).repeat(2, 1, 1) + _rand(gen, (2, 3, 3), dev, 0.05)
+    values = torch.arange(256, dtype=torch.float32, device=dev)
+    y, g, vecs = _bn_inputs(gen, (2, 9, 16, 64), torch.bfloat16, dev)
+    eager = (warp_nearest(labels, theta, (72, 128), values, (36, 64)), *bn_relu_bwd(y, g, *vecs))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm-up off the default stream, as capture wants
+        warp_nearest(labels, theta, (72, 128), values, (36, 64))
+        bn_relu_bwd(y, g, *vecs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = (warp_nearest(labels, theta, (72, 128), values, (36, 64)), *bn_relu_bwd(y, g, *vecs))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, eager))
+
+
+def test_k1_k7bwd_route_counters(dev):
+    """A vector-route call counts in ``vec_launches`` and ``launches``; a
+    scalar-route call only in ``launches``; refused calls in neither."""
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(45)
+    labels = torch.randint(0, 4, (36, 64), generator=gen, device=dev, dtype=torch.uint8)
+    theta = torch.eye(3, device=dev)[None]
+    values = torch.arange(256, dtype=torch.float32, device=dev)
+    _vec_routed(warp_nearest, True, lambda: warp_nearest(labels, theta, (36, 64), values))
+    _vec_routed(warp_nearest, False, lambda: warp_nearest(labels, theta, (36, 62), values))
+    y, g, vecs = _bn_inputs(gen, (1, 4, 4, 16), torch.bfloat16, dev)
+    _vec_routed(bn_relu_bwd, True, lambda: bn_relu_bwd(y, g, *vecs))
+    _vec_routed(bn_relu_bwd, False, lambda: bn_relu_bwd(y[..., :12], g[..., :12],
+                                                        *(v[:12] for v in vecs)))
+    counts = (warp_nearest.launches, warp_nearest.vec_launches, bn_relu_bwd.launches,
+              bn_relu_bwd.vec_launches)
+    with pytest.raises(TypeError):
+        warp_nearest(labels.float(), theta, (36, 64), values)
+    with pytest.raises(ValueError, match="different devices"):
+        bn_relu_bwd(y, g, vecs[0].cpu(), *vecs[1:])
+    assert counts == (warp_nearest.launches, warp_nearest.vec_launches, bn_relu_bwd.launches,
+                      bn_relu_bwd.vec_launches)
