@@ -17,8 +17,8 @@ its seconds:
    function (``library_ms``; the port never calls it) and the kernel's
    bound (the larger of its FLOPs over the card's peak for their type and
    its bytes, each input read and each output written once, over HBM):
-     K1 warp      1280x720 template, full grid and sample_hw=(360, 640):
-                  labels equal;
+     K1 warp      1280x720 template, full grid (the kernels line's entry)
+                  and sample_hw=(360, 640): labels equal;
      K2 conv3x3   64->64 at 360x640 and 128->128 at 180x320, with and
                   without the prologue;
      K3 deconv    the four UNet up-convs (up1 1024->512 at 22x40 .. up4
@@ -62,7 +62,26 @@ its seconds:
    phases must take the tensor-core route (``tc_launches`` ==
    ``launches``), every f32 one of the parity runs the SIMT route; every
    K1 launch of the predict and test-CLI runs and every K7-bwd call of the
-   bf16 train runs the 16-byte route.
+   bf16 train runs the 16-byte route.  K1 runs once a batch, on the
+   sampled 360x640 grid.
+4b. predict full outputs: the same frames and .pth through the predict CLI
+   with theta, consistency, segm and warp masks and poi at the default
+   1280x720 ``out_size`` (BASELINE config #2 less the debug renders: the
+   machine has no cv2), once as gray PNGs and once as RGB pickle streams.
+   K1 must run once a batch on the full 1280x720 grid, every K1, K2 and K3
+   launch on its fast route; theta and score equal the predict phase's
+   JSON exactly; 16 masks of each kind decode, frame 0's warp mask equals
+   K1's plain version on the CPU at its JSON theta, the segm masks the
+   resized argmax, the RGB masks the gray ones through the palette; on the
+   card the nearest downsample of a batch's full-grid labels equals the
+   sampled-grid labels bit for bit.  ``--resume`` after 8 recorded frames,
+   a torn record and torn mask streams predicts 8 frames and reproduces
+   the merged JSON and streams.  f32 CUDA against the CPU on 2 frames:
+   theta <= 2e-4, score <= 1e-3, poi <= 5e-4, warp labels differ on < 0.1 %
+   of pixels.  Prints the device time of a full-output batch of 8 (D2H
+   included) beside the theta+consistency batch's, two turns each, and
+   the CLI's frames/s and its writer thread's busy share, over the 16
+   frames and over 64 (the 16 four times; the theta+consistency CLI too).
 5. train: a seeded synthetic 640x360 set (24 train, 8 validation frames),
    a JSON conf (the flagship, bf16, the example conf's losses and RMSprop,
    consist_start_iter 0), the train CLI in-process: 3 steps at batch 8 and
@@ -94,7 +113,8 @@ its seconds:
    rtol 1e-3.
 
 The last two lines are JSON: the kernel table (each kernel's launches in
-the deconv predict run, or for the training kernels the deconv train run;
+the deconv predict run, K1's in the png full-output run, whose full grid
+its entry times, or for the training kernels the deconv train run;
 for the f32 SIMT routes ``conv3x3_f32`` / ``deconv2x2_f32`` and
 ``wgrad3x3_f32`` / ``deconv2x2_backward_f32`` the deconv predict's and
 train step's f32 parity runs; its error, times and bound),
@@ -275,7 +295,7 @@ def phase_kernels(dev, card):
     import torch.nn.functional as F
 
     from sports_field_homography_tpu_torch.data.assets import open_court_template
-    from sports_field_homography_tpu_torch.geometry.warp import subsampled_warp_grid
+    from sports_field_homography_tpu_torch.geometry.warp import subsampled_warp_grid, warp_grid
     from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
     from sports_field_homography_tpu_torch.ops.deconv import deconv2x2, deconv2x2_plain
     from sports_field_homography_tpu_torch.ops.warp import (
@@ -294,7 +314,7 @@ def phase_kernels(dev, card):
     noise = torch.randn((BATCH, 3, 3), generator=gen, device=dev)
     theta = eye + noise * torch.tensor([[0.1, 0.1, 0.2], [0.1, 0.1, 0.2],
                                         [0.05, 0.05, 0.0]], device=dev)
-    k1_err, k1_ms = 0.0, None
+    tmpl = labels.float().expand(BATCH, 1, 720, 1280).contiguous()
     for sample in (None, (360, 640)):
         def run():
             return warp_nearest(labels, theta, (720, 1280), values, sample)
@@ -309,26 +329,25 @@ def phase_kernels(dev, card):
         ms, bare = cuda_ms(run), graph_ms(run)
         pms = cuda_ms(lambda: warp_nearest_plain(labels, theta, (720, 1280), values, sample))
         bnd = bound(0, nbytes(labels, theta, got))
+        # yardstick: F.grid_sample(nearest) of the float template at the
+        # same sample points (grid made beforehand, not timed)
+        grid = (subsampled_warp_grid(theta, (720, 1280), sample) if sample
+                else warp_grid(theta, 720, 1280))
+
+        def library():
+            return F.grid_sample(tmpl, grid, mode="nearest", align_corners=False)
+
+        lib, lib_bare = cuda_ms(library), graph_ms(library)
         log(f"K1 warp_nearest 1280x720 sample_hw={sample} B={BATCH}: labels equal "
             f"({got.numel()} samples, {covered:.1%} on the court), float4 stores; kernel "
             f"{ms:.4f} ms timed whole, {bare:.4f} ms bare (CUDA graph of 20), plain {pms:.4f} "
-            f"ms; bound {bnd[0]:.4f} ms ({bnd[1]}), bare / bound {bare / bnd[0]:.2f} [{card}]")
-        if sample is not None:
-            k1_ms = (ms, pms)
-    # yardstick: F.grid_sample(nearest) of the float template at the same
-    # sample points (grid made beforehand, not timed)
-    grid = subsampled_warp_grid(theta, (720, 1280), (360, 640))
-    tmpl = labels.float().expand(BATCH, 1, 720, 1280).contiguous()
-
-    def library():
-        return F.grid_sample(tmpl, grid, mode="nearest", align_corners=False)
-
-    lib = cuda_ms(library)
-    log(f"K1 library F.grid_sample(nearest) at the sampled grid: {lib:.4f} ms timed whole, "
-        f"{graph_ms(library):.4f} ms bare (CUDA graph of 20); kernel / library timed whole "
-        f"{k1_ms[0] / lib:.2f} [{card}]")
-    results["warp_nearest"] = entry(k1_err, *k1_ms, lib, bnd)
-    del tmpl, grid
+            f"ms; library F.grid_sample(nearest) {lib:.4f} ms whole, {lib_bare:.4f} bare; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}), bare / bound {bare / bnd[0]:.2f}, kernel / "
+            f"library timed whole {ms / lib:.2f} [{card}]")
+        if sample is None:      # the full-output predict's grid, where K1 does the most
+            results["warp_nearest"] = entry(0.0, ms, pms, lib, bnd)
+        del grid
+    del tmpl
     # a template that skips a label ({0, 2} of 4 classes): the value table
     # gives label 2 the interval table's 0.5, and the card agrees bitwise
     gap_np = np.zeros((36, 64), np.uint8)
@@ -422,6 +441,28 @@ def phase_kernels(dev, card):
     return results
 
 
+class recording_k1_grids:
+    """Context manager: a list of the (out_hw, sample_hw) of every K1 call
+    the Reconstructor makes inside it."""
+
+    def __enter__(self):
+        from sports_field_homography_tpu_torch.models import reconstructor
+
+        self.grids, self.k1 = [], reconstructor.warp_nearest
+
+        def recording_k1(labels, theta, out_hw, values, sample_hw=None):
+            self.grids.append((tuple(out_hw), sample_hw))
+            return self.k1(labels, theta, out_hw, values, sample_hw)
+
+        reconstructor.warp_nearest = recording_k1
+        return self.grids
+
+    def __exit__(self, *exc):
+        from sports_field_homography_tpu_torch.models import reconstructor
+
+        reconstructor.warp_nearest = self.k1
+
+
 def _predict_launches(kernels):
     """Launch counts of the predict path's kernels, K2's single- and
     two-input launches apart."""
@@ -476,15 +517,19 @@ def phase_predict(dev, card, work, bilinear=False):
         fn.launches = 0
     conv3x3.dual_launches = conv3x3.tc_launches = deconv2x2.tc_launches = 0
     warp_nearest.vec_launches = 0
-    stats = predict_cli.process(
-        ["--img_dir", frames, "--load", ckpt, "--dst_dir", dst,
-         "--req_outputs", "theta,consistency", "--batchsize", str(BATCH),
-         "--court_img", COURT_IMG, "--court_poi", COURT_POI] + flag)
+    with recording_k1_grids() as grids:
+        stats = predict_cli.process(
+            ["--img_dir", frames, "--load", ckpt, "--dst_dir", dst,
+             "--req_outputs", "theta,consistency", "--batchsize", str(BATCH),
+             "--court_img", COURT_IMG, "--court_poi", COURT_POI] + flag)
     launches = _predict_launches(kernels)
-    log(f"predict {variant}: kernel launches in the CLI run: {launches}; on the tensor "
-        f"cores: K2 {conv3x3.tc_launches} of {conv3x3.launches}, K3 {deconv2x2.tc_launches} of "
-        f"{deconv2x2.launches}; K1 on the float4 stores: {warp_nearest.vec_launches} of "
-        f"{warp_nearest.launches}")
+    log(f"predict {variant}: kernel launches in the CLI run: {launches}; K1 grids "
+        f"{sorted(set(grids))}; on the tensor cores: K2 {conv3x3.tc_launches} of "
+        f"{conv3x3.launches}, K3 {deconv2x2.tc_launches} of {deconv2x2.launches}; K1 on the "
+        f"float4 stores: {warp_nearest.vec_launches} of {warp_nearest.launches}")
+    if grids != [((720, 1280), (360, 640))] * 2:
+        raise AssertionError(f"predict {variant}: K1 did not run once a batch on the sampled "
+                             f"360x640 grid of the 1280x720 warp: {grids}")
     if conv3x3.tc_launches != conv3x3.launches or deconv2x2.tc_launches != deconv2x2.launches:
         raise AssertionError(f"predict {variant}: a bf16 K2 or K3 launch left the tensor-core "
                              "route")
@@ -563,6 +608,282 @@ def phase_predict(dev, card, work, bilinear=False):
     log(f"predict {variant}: theta+consistency 640x360 bf16 batch {BATCH}: {ms:.2f} ms/batch, "
         f"{BATCH * 1000.0 / ms:.1f} frames/s (CUDA events, median of 5) [{card}]")
     return launches
+
+
+FULL_OUTPUTS = "theta,consistency,segm_mask,warp_mask,poi"
+
+
+def _read_pickle_masks(path):
+    """{name: decoded mask} of a pickled PNG-buffer stream (the last record
+    of a name wins, as readers keep it)."""
+    import pickle
+
+    from sports_field_homography_tpu_torch.data.png import decode_png
+
+    out, n = {}, 0
+    with open(path, "rb") as f:
+        while True:
+            try:
+                name, buf = pickle.load(f)
+            except EOFError:
+                return out, n
+            out[name] = decode_png(buf.tobytes())
+            n += 1
+
+
+def phase_predict_full(dev, card, work):
+    """The predict CLI with every output but debug (BASELINE config #2 less
+    the debug renders, which need cv2) on the predict phase's 16 frames
+    and .pth: K1 once a batch on the full 1280x720 grid, records equal to
+    the theta+consistency run's, the masks checked against K1's plain
+    version and the argmax, --resume, f32 CUDA against the CPU, and the
+    device and CLI times."""
+    import pickle
+
+    import torch
+
+    from sports_field_homography_tpu_torch.cli import predict as predict_cli
+    from sports_field_homography_tpu_torch.cli.engine import build_model, predict_fn
+    from sports_field_homography_tpu_torch.data.assets import open_court_template
+    from sports_field_homography_tpu_torch.data.dataset import BasicDataset
+    from sports_field_homography_tpu_torch.data.png import read_png
+    from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_norm
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2
+    from sports_field_homography_tpu_torch.ops.resize import resize_nearest
+    from sports_field_homography_tpu_torch.ops.warp import (template_value_table, warp_nearest,
+                                                           warp_nearest_plain)
+    from sports_field_homography_tpu_torch.utils.postprocess import onehot_to_image
+
+    frames = os.path.join(work, "game0")
+    ckpt = os.path.join(work, "flagship", "model.pth")
+    with open(os.path.join(work, "out_flagship", "game0_court.json")) as f:
+        slim = json.load(f)
+    names = sorted(n[:-4] for n in os.listdir(frames))
+    base = ["--img_dir", frames, "--load", ckpt, "--req_outputs", FULL_OUTPUTS,
+            "--batchsize", str(BATCH), "--court_img", COURT_IMG, "--court_poi", COURT_POI,
+            "--device", dev.type]
+    kernels = {"warp_nearest": warp_nearest, "conv3x3": conv3x3, "deconv2x2": deconv2x2,
+               "bn_relu_norm": bn_relu_norm}
+    runs = {}
+    for fmt, mask_type in (("png", "gray"), ("pickle", "rgb")):
+        dst = os.path.join(work, f"out_full_{fmt}")
+        for fn in kernels.values():
+            fn.launches = 0
+        conv3x3.dual_launches = conv3x3.tc_launches = deconv2x2.tc_launches = 0
+        warp_nearest.vec_launches = 0
+        with recording_k1_grids() as grids:
+            stats = predict_cli.process(base + ["--dst_dir", dst, "--mask_save_format", fmt,
+                                               "--mask_type", mask_type])
+        launches = _predict_launches(kernels)
+        log(f"predict full outputs ({fmt}, {mask_type}): kernel launches in the CLI run: "
+            f"{launches}; K1 grids {grids}; on the tensor cores: K2 {conv3x3.tc_launches} of "
+            f"{conv3x3.launches}, K3 {deconv2x2.tc_launches} of {deconv2x2.launches}; K1 on "
+            f"the float4 stores: {warp_nearest.vec_launches} of {warp_nearest.launches}")
+        if grids != [((720, 1280), None)] * 2 or warp_nearest.launches != 2:
+            raise AssertionError(f"predict full outputs: K1 did not run once a batch on the "
+                                 f"full 1280x720 grid alone: {grids}")
+        if conv3x3.tc_launches != conv3x3.launches or deconv2x2.tc_launches != \
+                deconv2x2.launches or warp_nearest.vec_launches != warp_nearest.launches:
+            raise AssertionError("predict full outputs: a K1, K2 or K3 launch left its fast "
+                                 "route")
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"predict full outputs: {name} was never launched")
+        with open(os.path.join(dst, "game0_court.json")) as f:
+            out = json.load(f)
+        if out.pop("model") != "flagship" or sorted(out) != names:
+            raise AssertionError("predict full outputs: wrong frames or model in the JSON")
+        slim_pairs = [(slim[n]["theta"], slim[n]["score"]) for n in names]
+        if [(out[n]["theta"], out[n]["score"]) for n in names] != slim_pairs:
+            raise AssertionError("predict full outputs: theta or score differ from the "
+                                 "theta+consistency run")
+        if any(list(out[n]) != ["score", "theta", "poi"] for n in names):
+            raise AssertionError("predict full outputs: record keys not in the JAX CLI's order")
+        poi = np.array([out[n]["poi"] for n in names], np.float64)
+        if poi.ndim != 3 or poi.shape[0] != 16 or poi.shape[2] != 2 \
+                or not np.isfinite(poi).all():
+            raise AssertionError(f"predict full outputs: poi {poi.shape} not finite (16, N, 2)")
+        masks = {}
+        for key in ("segm_mask", "warp_mask"):
+            sub = os.path.join(dst, "court", key)
+            if fmt == "png":
+                masks[key] = {n: read_png(os.path.join(sub, n + ".png")) for n in names}
+            else:
+                masks[key], n_rec = _read_pickle_masks(os.path.join(sub, "data.pkl"))
+                if n_rec != 16:
+                    raise AssertionError(f"predict full outputs: {n_rec} pickle records in "
+                                         f"{key}, expected 16")
+            want = (720, 1280) + ((3,) if mask_type == "rgb" else ())
+            if sorted(masks[key]) != names or any(m.shape != want for m in masks[key].values()):
+                raise AssertionError(f"predict full outputs: {key} masks missing or misshapen")
+        runs[fmt] = (stats, out, masks, launches, dst)
+        log(f"predict full outputs ({fmt}, {mask_type}): 16 records, theta and score equal to "
+            f"the theta+consistency run's, poi {poi.shape} finite; 16 + 16 masks decoded; CLI "
+            f"{stats['frames'] / stats['seconds']:.1f} frames/s over {stats['seconds']:.3f} s "
+            f"(2 batches, host pipeline included), writer thread busy "
+            f"{stats['writer_seconds']:.3f} s = {stats['writer_seconds'] / stats['seconds']:.1%}"
+            f" of the loop [{card}]")
+    stats, out, masks, launches, dst = runs["png"]
+    # the RGB run's masks are the gray run's through the palette (the file
+    # holds RGB: the BGR palette reversed)
+    for key in ("segm_mask", "warp_mask"):
+        rgb = runs["pickle"][2][key]
+        for n in names:
+            if not np.array_equal(rgb[n], onehot_to_image(masks[key][n], 4)[0][..., ::-1]):
+                raise AssertionError(f"predict full outputs: rgb {key} of {n} is not the "
+                                     "gray one's palette")
+
+    # frame 0's warp mask: K1's plain version on the CPU at its JSON theta
+    labels_np = open_court_template(COURT_IMG, 4, size=(1280, 720))
+    cpu_labels, values = torch.from_numpy(labels_np), template_value_table(labels_np, 4)
+    theta0 = torch.tensor(out[names[0]]["theta"], dtype=torch.float32)
+    plain = (warp_nearest_plain(cpu_labels, theta0[None], (720, 1280), values) * 4).to(torch.uint8)
+    n_diff = int((plain[0].numpy() != masks["warp_mask"][names[0]]).sum())
+    if n_diff:
+        raise AssertionError(f"predict full outputs: frame 0's warp mask differs from K1's "
+                             f"plain version on {n_diff} pixels")
+    # the segm masks: the nearest resize (cv2's rule, host) of the uint8
+    # argmax of the same program's logits
+    b = build_model(_full_args("cuda", "bfloat16"), load=ckpt, fold_bn=True)
+    ds = BasicDataset(sorted(os.listdir(frames)), frames, b.config.target_size)
+    xb = torch.from_numpy(np.stack([ds[i]["image"] for i in range(BATCH)])).to(dev)
+    with torch.inference_mode():
+        segm = predict_fn(b, True, ["segm_mask"])(xb)["segm_mask"].cpu().numpy()
+    resized = predict_cli._resize_masks(segm, (1280, 720))
+    n_diff = sum(int((resized[i] != masks["segm_mask"][names[i]]).sum()) for i in range(BATCH))
+    if n_diff:
+        raise AssertionError(f"predict full outputs: segm masks differ from the resized "
+                             f"argmax on {n_diff} pixels")
+    # one batch: the full-grid labels' nearest downsample equals K1 on the
+    # sampled grid, bit for bit
+    theta = torch.tensor([out[n]["theta"] for n in names[:BATCH]], device=dev)
+    full = warp_nearest(b.court_labels, theta, (720, 1280), b.value_table) * 4
+    sampled = warp_nearest(b.court_labels, theta, (720, 1280), b.value_table, (360, 640)) * 4
+    if not torch.equal(resize_nearest(full, (360, 640)), sampled):
+        raise AssertionError("predict full outputs: the downsampled full-grid labels differ "
+                             "from the sampled-grid labels")
+    log("predict full outputs: frame 0's warp mask equals K1's plain version on the CPU at "
+        "its JSON theta on all 921600 pixels; the segm masks equal the resized argmax; on the "
+        "card the nearest downsample of a batch's full-grid labels equals the sampled-grid "
+        "labels bit for bit")
+
+    # --resume from the pickle run: the first 8 records and a torn line,
+    # the mask streams cut in the middle of a record
+    rdst = os.path.join(work, "out_full_resume")
+    pdst = runs["pickle"][4]
+    with open(os.path.join(pdst, "game0_court.json")) as f:
+        pfull = json.load(f)
+    os.makedirs(rdst)
+    with open(os.path.join(rdst, "game0_court_processing.json"), "w") as f:
+        for n in names[:8]:
+            f.write(json.dumps({n: pfull[n]}) + "\n")
+        f.write('{"' + names[8] + '": {"score": 0.1')
+    for key in ("segm_mask", "warp_mask"):
+        os.makedirs(os.path.join(rdst, "court", key))
+        with open(os.path.join(pdst, "court", key, "data.pkl"), "rb") as f:
+            ends = []
+            for _ in range(10):
+                pickle.load(f)
+                ends.append(f.tell())
+            f.seek(0)
+            stream = f.read()
+        with open(os.path.join(rdst, "court", key, "data.pkl"), "wb") as f:
+            # the first 9 records whole (a crash writes masks before their
+            # record), the tenth cut in the middle
+            f.write(stream[: (ends[8] + ends[9]) // 2])
+    rstats = predict_cli.process(base + ["--dst_dir", rdst, "--mask_save_format", "pickle",
+                                         "--mask_type", "rgb", "--resume"])
+    with open(os.path.join(rdst, "game0_court.json")) as f:
+        resumed = json.load(f)
+    if rstats["frames"] != 8 or resumed != pfull:
+        raise AssertionError(f"predict --resume: {rstats['frames']} frames predicted "
+                             "(expected 8), or the merged JSON differs from the full run's")
+    for key in ("segm_mask", "warp_mask"):
+        got, _ = _read_pickle_masks(os.path.join(rdst, "court", key, "data.pkl"))
+        if sorted(got) != names or any(not np.array_equal(got[n], runs["pickle"][2][key][n])
+                                       for n in names):
+            raise AssertionError(f"predict --resume: the {key} stream does not hold the full "
+                                 "run's masks")
+    log("predict --resume: 8 frames predicted after 8 recorded and a torn record; merged "
+        "game0_court.json equal to the uninterrupted run's; both pickle streams read to their "
+        "end with every frame's mask equal")
+
+    # f32: CUDA (TF32 off) against the CPU on 2 frames of the full program
+    x2 = torch.from_numpy(np.stack([ds[i]["image"] for i in range(2)]))
+    keep = ["theta", "consist_score", "poi", "warp_mask", "segm_mask"]
+    res = {}
+    for device in ("cuda", "cpu"):
+        bb = build_model(_full_args(device, "float32"), load=ckpt, fold_bn=True)
+        with torch.inference_mode():
+            res[device] = {k: v.cpu() for k, v in predict_fn(bb, True, keep)(
+                x2.to(bb.device)).items()}
+    d = {k: (res["cuda"][k].float() - res["cpu"][k].float()).abs().max().item()
+         for k in ("theta", "consist_score", "poi")}
+    warp_frac = (res["cuda"]["warp_mask"] != res["cpu"]["warp_mask"]).float().mean().item()
+    segm_frac = (res["cuda"]["segm_mask"] != res["cpu"]["segm_mask"]).float().mean().item()
+    log(f"predict full outputs f32 CUDA vs CPU: theta max abs {d['theta']:.3e} (bound 2e-4), "
+        f"score {d['consist_score']:.3e} (1e-3), poi {d['poi']:.3e} (5e-4), warp labels differ "
+        f"on {warp_frac:.3e} of pixels (< 1e-3), segm labels on {segm_frac:.3e}")
+    if not (d["theta"] <= 2e-4 and d["consist_score"] <= 1e-3 and d["poi"] <= 5e-4
+            and warp_frac < 1e-3):
+        raise AssertionError("predict full outputs: f32 CUDA and CPU disagree beyond the bounds")
+
+    # device time of a batch of 8, D2H into pinned memory included: the
+    # full-output program beside the theta+consistency one
+    full_fn = predict_fn(b, True, keep)
+    slim_fn = predict_fn(b, True, ["theta", "consist_score"])
+
+    def timed(fn):
+        def step():
+            with torch.inference_mode():
+                predict_cli._to_host(fn(xb), dev)
+        return cuda_ms(step, warmup=2, runs=7)
+
+    ms = {"slim": timed(slim_fn), "full": timed(full_fn)}
+    ms["slim2"], ms["full2"] = timed(slim_fn), timed(full_fn)
+    with torch.inference_mode():
+        d2h = sum(v.numel() * v.element_size() for v in full_fn(xb).values())
+    log(f"predict full outputs 640x360 bf16 batch {BATCH}: {ms['full']:.2f} / {ms['full2']:.2f} "
+        f"ms/batch with {d2h / 1e6:.2f} MB copied to pinned host memory, theta+consistency "
+        f"{ms['slim']:.2f} / {ms['slim2']:.2f} ms/batch (CUDA events, median of 7, two turns "
+        f"each, D2H included) [{card}]")
+    # the CLI's rate over 8 batches (the 16 frames 4 times), beside the
+    # theta+consistency CLI's on the same frames
+    many = os.path.join(work, "game0_x4")
+    os.makedirs(many)
+    for i in range(64):
+        os.symlink(os.path.join(frames, f"{i % 16:06d}.png"), os.path.join(many, f"{i:06d}.png"))
+    common = ["--img_dir", many, "--load", ckpt, "--batchsize", str(BATCH), "--court_img",
+              COURT_IMG, "--court_poi", COURT_POI, "--device", dev.type]
+    for tag, extra in (("theta+consistency", ["--req_outputs", "theta,consistency"]),
+                       ("png gray", ["--req_outputs", FULL_OUTPUTS, "--mask_type", "gray",
+                                     "--mask_save_format", "png"]),
+                       ("pickle rgb", ["--req_outputs", FULL_OUTPUTS, "--mask_type", "rgb",
+                                       "--mask_save_format", "pickle"])):
+        dst = os.path.join(work, "out_x4_" + tag.split()[0].replace("+", "_"))
+        st = predict_cli.process(common + extra + ["--dst_dir", dst])
+        log(f"predict CLI {tag}, 64 frames (8 batches): {st['frames'] / st['seconds']:.1f} "
+            f"frames/s; writer thread busy {st['writer_seconds']:.3f} of {st['seconds']:.3f} s "
+            f"({st['writer_seconds'] / st['seconds']:.1%}), "
+            f"{st['writer_seconds'] * 1e3 / st['frames']:.2f} ms a frame [{card}]")
+    return launches
+
+
+def _full_args(device, dtype):
+    """build_model arguments of the flagship at the predict CLI's defaults
+    with the full outputs (1280x720 warp and court)."""
+    class Args:
+        target_size = unet_size = (640, 360)
+        warp_size = court_size = (1280, 720)
+        mask_classes = 4
+        use_unet = use_resnet = use_warper = True
+        unet_uv = unet_bilinear = False
+        resnet_name, resnet_input = "resnet34", "img+mask"
+        court_img, court_poi = COURT_IMG, COURT_POI
+
+    Args.device, Args.compute_dtype = device, dtype
+    return Args
 
 
 def _rel_l2(got, ref) -> float:
@@ -1549,7 +1870,6 @@ def phase_test_cli(dev, card, work, cp_dir, data):
     import torch
 
     from sports_field_homography_tpu_torch.cli import test as test_cli
-    from sports_field_homography_tpu_torch.models import reconstructor
     from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_norm
     from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
     from sports_field_homography_tpu_torch.ops.deconv import deconv2x2
@@ -1561,24 +1881,14 @@ def phase_test_cli(dev, card, work, cp_dir, data):
     argv = ["--cp_dir", cp_dir, "--test_epochs", "1", "--img_dir", games,
             "--mask_dir", os.path.join(data, "masks"), "--anno_dir", os.path.join(data, "anno"),
             "--batchsize", str(BATCH), "--court_img", COURT_IMG, "--court_poi", COURT_POI]
-    grids = []
-    k1 = reconstructor.warp_nearest
-
-    def recording_k1(labels, theta, out_hw, values, sample_hw=None):
-        grids.append((tuple(out_hw), sample_hw))
-        return k1(labels, theta, out_hw, values, sample_hw)
-
     kernels = {"warp_nearest": warp_nearest, "conv3x3": conv3x3, "deconv2x2": deconv2x2,
                "bn_relu_norm": bn_relu_norm}
     for fn in kernels.values():
         fn.launches = 0
     conv3x3.dual_launches = conv3x3.tc_launches = deconv2x2.tc_launches = 0
     warp_nearest.vec_launches = 0
-    reconstructor.warp_nearest = recording_k1
-    try:
+    with recording_k1_grids() as grids:
         res = test_cli.main(argv + ["--device", "cuda"])["1"]
-    finally:
-        reconstructor.warp_nearest = k1
     launches = _predict_launches(kernels)
     log(f"test CLI: kernel launches in the run: {launches}; K1 grids {sorted(set(grids))}, "
         f"{warp_nearest.vec_launches} of {warp_nearest.launches} on the float4 stores; on the "
@@ -1653,32 +1963,42 @@ def flagship_train_step(dev, batch_size, bilinear=False):
     return lambda: train_step(model, opt, batch, 0, court, poi, cfg)
 
 
-def flagship_predict_step(dev, batch_size, bilinear=False):
+def flagship_predict_step(dev, batch_size, bilinear=False, full_outputs=False):
     """A closure running the flagship's (or the bilinear UNet's) predict
-    path as the predict CLI does (bf16, BN folded, theta + consistency on
-    the 1280x720 NCAA warp grid sampled at the logits) on a fixed batch of
-    seeded uint8 640x360 frames, with seeded random weights."""
+    path as the predict CLI does (bf16, BN folded, ``engine.predict_fn``,
+    the kept outputs copied to pinned host memory) on a fixed batch of
+    seeded uint8 640x360 frames, with seeded random weights: theta +
+    consistency on the 1280x720 NCAA warp grid sampled at the logits, or
+    with ``full_outputs`` also poi and the segm and warp masks (K1 on the
+    full grid)."""
     import torch
 
+    from sports_field_homography_tpu_torch.cli.engine import ModelBundle, predict_fn
+    from sports_field_homography_tpu_torch.cli.predict import _to_host
     from sports_field_homography_tpu_torch.data.assets import open_court_template
+    from sports_field_homography_tpu_torch.geometry.court import load_court_poi
     from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
     from sports_field_homography_tpu_torch.models.layers import init_weights
     from sports_field_homography_tpu_torch.ops.fold_bn import fold_batchnorm
     from sports_field_homography_tpu_torch.ops.warp import template_value_table
 
-    model = Reconstructor(ReconstructorConfig(warp_size=(1280, 720), unet_bilinear=bilinear),
-                          dtype=torch.bfloat16)
+    cfg = ReconstructorConfig(warp_size=(1280, 720), unet_bilinear=bilinear)
+    model = Reconstructor(cfg, dtype=torch.bfloat16)
     init_weights(model, torch.Generator().manual_seed(0))
     model = fold_batchnorm(model).to(dev).eval()
     labels_np = open_court_template(COURT_IMG, 4, size=(1280, 720))
-    labels = torch.from_numpy(labels_np).to(dev)
-    values = template_value_table(labels_np, 4).to(dev)
+    bundle = ModelBundle(model, torch.from_numpy(labels_np).to(dev),
+                         template_value_table(labels_np, 4).to(dev),
+                         load_court_poi(COURT_POI).astype(np.float32), cfg, dev)
+    keep = ["theta", "consist_score"] + (["poi", "segm_mask", "warp_mask"] if full_outputs
+                                         else [])
+    fn = predict_fn(bundle, True, keep)
     frames = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (batch_size, 360, 640, 3), dtype=np.uint8)).to(dev)
 
     def run():
         with torch.inference_mode():
-            return model.predict(frames.float() / 255.0, labels, values)
+            return _to_host(fn(frames), dev)
 
     return run
 
@@ -1733,6 +2053,9 @@ def main() -> int:
     # launches: the predict path's kernels from the deconv predict run, the
     # training kernels from the deconv train run
     launches = run("predict", phase_predict, dev, card, work)
+    # K1's launches: the full-output run, where it warps the full grid
+    launches["warp_nearest"] = run("predict full outputs", phase_predict_full, dev, card,
+                                   work)["warp_nearest"]
     train_launches, cp_dir, data = run("train", phase_train, dev, card, work)
     launches.update({k: train_launches[k] for k in
                      ("deconv2x2_backward", "wgrad3x3", "bn_relu_bwd", "bn_relu_stats")})

@@ -3,14 +3,17 @@
 batches) of the PyTorch port (``sports_field_homography_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 scripts/torch_train_profile.py [--batch 8] [--profile] [--unet_bilinear] [--predict]
+    python3 scripts/torch_train_profile.py [--batch 8] [--profile] [--unet_bilinear]
+        [--predict [--full_outputs]]
 
 The flagship (UNet deconv 64..1024, or with ``--unet_bilinear`` the
 bilinear UNet, + ResNet34 on img+mask, 4 classes, 640x360, bf16) with
 seeded random weights takes train steps on a fixed batch of synthetic
 court renders (``chip_smoke.flagship_train_step``), or with ``--predict``
-runs the predict CLI's device path, BN folded, theta + consistency, on a
-batch of seeded frames (``chip_smoke.flagship_predict_step``).
+runs the predict CLI's device path, BN folded, theta + consistency (with
+``--full_outputs`` also poi and the segm and warp masks, K1 on the full
+1280x720 grid), the outputs copied to pinned host memory, on a batch of
+seeded frames (``chip_smoke.flagship_predict_step``).
 Prints the card's name and power limit, then ms/step and img/s (CUDA
 events, median of 5 steps after 2 warm-up).  With ``--profile`` one more
 step runs under ``torch.profiler``: device time by kernel (top 25), the
@@ -26,6 +29,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # group of the port's kernels comes before cuDNN's, whose keys ("conv",
 # "gemm", "wgrad", "dgrad") the port's names contain too
 _GROUPS = [
+    ("K1 warp_nearest", ("warp_nearest",)),
     ("K2 conv3x3 tensor cores (fwd, stats, dgrad)", ("conv3x3_sm90_kernel",)),
     ("K5 wgrad3x3 tensor cores", ("wgrad3x3_sm90_kernel",)),
     # the forward and the dgrad are one kernel template, told apart by its map
@@ -44,8 +48,9 @@ _GROUPS = [
     ("cuDNN / cuBLAS (stem, ResNet, 1x1 heads)", ("cudnn", "xmma", "gemm", "conv",
                                                   "cutlass", "nchw", "nhwc", "wgrad", "dgrad")),
     ("optimizer (RMSprop) and clamps", ("multi_tensor", "foreach", "clamp")),
-    ("reductions", ("reduce",)),
+    ("reductions (argmax, logsumexp, means)", ("reduce", "argmax")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
+    ("copies to the host (D2H)", ("DtoH",)),
     ("concat / copy / pad", ("cat", "copy", "pad", "Memcpy", "Memset")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "Activation")),
 ]
@@ -65,6 +70,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--unet_bilinear", action="store_true")
     ap.add_argument("--predict", action="store_true")
+    ap.add_argument("--full_outputs", action="store_true",
+                    help="with --predict: BASELINE config #2's outputs")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import subprocess
@@ -80,11 +87,15 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda:0")
-    make = chip_smoke.flagship_predict_step if args.predict else chip_smoke.flagship_train_step
-    step = make(dev, args.batch, args.unet_bilinear)
+    if args.predict:
+        step = chip_smoke.flagship_predict_step(dev, args.batch, args.unet_bilinear,
+                                                args.full_outputs)
+    else:
+        step = chip_smoke.flagship_train_step(dev, args.batch, args.unet_bilinear)
     ms = chip_smoke.cuda_ms(step, warmup=2, runs=5)
     variant = ("bilinear" if args.unet_bilinear else "flagship") + (
-        " predict" if args.predict else " train")
+        (" predict, full outputs" if args.full_outputs else " predict") if args.predict
+        else " train")
     print(f"{variant} 640x360 bf16 batch {args.batch}: {ms:.1f} ms/step, "
           f"{args.batch * 1000.0 / ms:.1f} img/s (CUDA events, median of 5) "
           f"[{card}]; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",

@@ -1,12 +1,13 @@
 """Model construction for the CLIs (port of ``cli/engine.py``): build the
 Reconstructor from parsed arguments, load its weights, fold BN, and load
-the court constants onto the device.
+the court constants onto the device; ``predict_fn`` is the predict CLI's
+device program (the JAX ``jit_predict_fn``, run eagerly).
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -19,7 +20,7 @@ from ..ops.fold_bn import fold_batchnorm
 from ..ops.warp import template_value_table
 from ..utils.config import resolve_asset
 
-__all__ = ["ModelBundle", "build_model", "discover_conf", "dtype_from_str"]
+__all__ = ["ModelBundle", "build_model", "predict_fn", "discover_conf", "dtype_from_str"]
 
 
 def dtype_from_str(name: str) -> torch.dtype:
@@ -81,6 +82,36 @@ def build_model(args, load: Optional[str] = None, seed: int = 0,
     return ModelBundle(model, torch.from_numpy(labels).to(device),
                        template_value_table(labels, args.mask_classes).to(device),
                        court_poi, cfg, device)
+
+
+def predict_fn(bundle: ModelBundle, consistency: bool,
+               keep: Iterable[str]) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+    """The predict CLI's device program: uint8 frames in, the ``keep``
+    outputs out, all on the model's device.
+
+    It divides the (B, H, W, 3) uint8 frames by 255 (true division:
+    ``x * (1 / 255)`` differs in the last ulp), runs ``Reconstructor.predict``
+    (K1 on the full warp grid when ``warp_mask`` is kept, else on the
+    logits grid for the score alone; ``poi`` when it is kept), narrows the
+    argmax of the logits (``segm_mask``) and the warp labels to uint8, and
+    drops what ``keep`` does not name, so only those outputs need copying
+    to the host.
+    """
+    keep = frozenset(keep)
+    court_poi = (torch.from_numpy(bundle.court_poi).to(bundle.device)
+                 if "poi" in keep else None)
+
+    def fn(frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        preds = bundle.model.predict(frames.float() / 255.0, bundle.court_labels,
+                                     bundle.value_table, consistency=consistency,
+                                     warp_mask="warp_mask" in keep, court_poi=court_poi)
+        if "segm_mask" in keep and "logits" in preds:
+            preds["segm_mask"] = preds["logits"].argmax(dim=-1).to(torch.uint8)
+        if "warp_mask" in preds:
+            preds["warp_mask"] = preds["warp_mask"].to(torch.uint8)
+        return {k: v for k, v in preds.items() if k in keep}
+
+    return fn
 
 
 def discover_conf(load_path: Optional[str], conf_path: Optional[str]):

@@ -1,4 +1,5 @@
-"""Image file reading: Pillow where it is installed, else ``data/png.py``."""
+"""Image file reading: Pillow where it is installed, else ``data/png.py``;
+and whether cv2 (the video source, the debug renders) is installed."""
 from __future__ import annotations
 
 import os
@@ -7,12 +8,20 @@ import numpy as np
 
 from .png import read_png
 
-__all__ = ["read_image", "have_pillow"]
+__all__ = ["read_image", "have_pillow", "have_cv2"]
 
 
 def have_pillow() -> bool:
     try:
         import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def have_cv2() -> bool:
+    try:
+        import cv2  # noqa: F401
     except ImportError:
         return False
     return True

@@ -25,6 +25,7 @@ __all__ = ["Loader", "device_prefetch"]
 
 _READY_BATCHES = 2      # decoded batches waiting for the consumer
 _IN_FLIGHT = 2          # batches copied to the device ahead of use
+_HOST_KEYS = frozenset({"orig_img"})    # read on the host only (debug renders)
 
 
 def _collate(samples) -> Dict[str, object]:
@@ -128,7 +129,7 @@ class Loader:
 
 def device_prefetch(iterator, device: torch.device):
     """Copy each batch's numpy arrays to ``device`` ahead of use (other
-    entries, such as names, pass through).
+    entries, such as names, and the host-only ``_HOST_KEYS`` pass through).
 
     On a CUDA device they go through pinned memory with ``non_blocking``
     copies on the current stream, so ``_IN_FLIGHT`` batches are on their
@@ -139,7 +140,7 @@ def device_prefetch(iterator, device: torch.device):
 
     def put(batch):
         for k, v in batch.items():
-            if isinstance(v, np.ndarray):
+            if isinstance(v, np.ndarray) and k not in _HOST_KEYS:
                 t = torch.from_numpy(v)
                 if pin:
                     t = t.pin_memory()

@@ -2,8 +2,9 @@
 
 Reads 8-bit, non-interlaced grayscale (L), gray+alpha, RGB and RGBA PNGs:
 enough for the court templates and for frames, where Pillow is absent.
-Pillow is used instead wherever it is installed.  Writes 8-bit L and RGB
-PNGs with filter 0 (synthetic frames and masks).
+Pillow is used instead wherever it is installed.  Encodes 8-bit L and RGB
+PNGs with filter 0 and zlib level 1 (synthetic frames, the predict CLI's
+masks).
 
 PNG filters predict each byte from its left, upper and upper-left
 neighbours (Sub, Up, Average, Paeth), so a row cannot be undone in one
@@ -19,7 +20,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_png", "write_png"]
+__all__ = ["read_png", "decode_png", "write_png", "encode_png"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}       # PNG colour type -> channels
@@ -52,7 +53,11 @@ def _unfilter(ftype: np.ndarray, raw: np.ndarray) -> np.ndarray:
 def read_png(path: str) -> np.ndarray:
     """Decode a PNG file to (H, W) uint8 for grayscale, else (H, W, C)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """Decode a PNG's bytes (``path`` names it in errors), as ``read_png``."""
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos, header, idat = 8, None, []
@@ -81,16 +86,16 @@ def read_png(path: str) -> np.ndarray:
     return img[..., 0] if c == 1 else img
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write (H, W) uint8 as an L PNG or (H, W, 3) uint8 as an RGB PNG,
-    every row with filter 0."""
+def encode_png(img: np.ndarray) -> bytes:
+    """(H, W) uint8 as an L PNG or (H, W, 3) uint8 as an RGB PNG, in that
+    channel order, every row with filter 0; returns the file's bytes."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
     if img.ndim == 2:
         color, c = 0, 1
     elif img.ndim == 3 and img.shape[2] == 3:
         color, c = 2, 3
     else:
-        raise ValueError(f"write_png takes (H, W) or (H, W, 3), got {img.shape}")
+        raise ValueError(f"encode_png takes (H, W) or (H, W, 3), got {img.shape}")
     h, w = img.shape[:2]
     raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], 1)
 
@@ -99,8 +104,16 @@ def write_png(path: str, img: np.ndarray) -> None:
         return struct.pack(">I", len(data)) + body + struct.pack(
             ">I", zlib.crc32(body) & 0xFFFFFFFF)
 
+    return b"".join([
+        _SIGNATURE,
+        chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)),
+        chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)),
+        chunk(b"IEND", b"")])
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write (H, W) uint8 as an L PNG or (H, W, 3) uint8 as an RGB PNG
+    (``encode_png``)."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)))
-        f.write(chunk(b"IEND", b""))
+        f.write(data)

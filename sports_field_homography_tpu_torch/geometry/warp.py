@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.resize import nearest_index
 from .homography import transform_points
 
 __all__ = ["normalized_grid", "warp_grid", "subsampled_warp_grid",
@@ -50,13 +51,6 @@ def warp_grid(theta: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return pts.reshape(theta.shape[0], height, width, 2)
 
 
-def _subsample_index(n_full: int, n_sub: int, device) -> torch.Tensor:
-    """torch nearest-resize source indices ``floor(i * full / sub)``."""
-    i = torch.arange(n_sub, dtype=torch.float32, device=device)
-    return torch.clamp(torch.floor(i * _f32(n_full / n_sub)),
-                       max=float(n_full - 1))
-
-
 def subsampled_warp_grid(theta: torch.Tensor, out_hw, sample_hw) -> torch.Tensor:
     """The out_hw warp grid evaluated only at the nearest-resize sample
     points of sample_hw (port of ``ops/interval_warp._warp_grid_subsampled``):
@@ -66,8 +60,8 @@ def subsampled_warp_grid(theta: torch.Tensor, out_hw, sample_hw) -> torch.Tensor
     ho, wo = out_hw
     hs, ws = sample_hw
     dev = theta.device
-    xn = _subsample_index(wo, ws, dev) * _f32(2.0 / (wo - 1)) - 1.0
-    yn = _subsample_index(ho, hs, dev) * _f32(2.0 / (ho - 1)) - 1.0
+    xn = nearest_index(wo, ws, dev).float() * _f32(2.0 / (wo - 1)) - 1.0
+    yn = nearest_index(ho, hs, dev).float() * _f32(2.0 / (ho - 1)) - 1.0
     grid = torch.stack([xn[None, :].expand(hs, ws),
                         yn[:, None].expand(hs, ws)], dim=-1).reshape(1, -1, 2)
     pts = transform_points(theta, grid)

@@ -7,12 +7,14 @@ Conventions as in the JAX package: images NHWC in [0, 1]; theta
 court template is a (Ht, Wt) uint8 label map.  Sizes are (W, H).
 
 PyTorch runs eagerly, so nothing is pruned after the fact: ``predict``
-computes only what it is asked for.  In particular the consistency labels
-come from the warp evaluated at the logits grid (``sample_hw``): the
-full-resolution warp belongs to the ``warp_mask`` output, which is not
-ported yet.  ``forward`` warps bilinearly (training), or, with
-``warp_with_nearest`` (the checkpoint test CLI), with K1 on the full
-``warp_size`` grid, as the JAX ``warp`` does.
+computes only what it is asked for.  Without the ``warp_mask`` output the
+consistency labels come from K1 evaluated at the logits grid only
+(``sample_hw``); with it, K1 runs once on the full ``warp_size`` grid and
+the consistency labels are the nearest downsample of those labels, equal
+to the sampled ones bit for bit (the JAX ``score_from_warp_mask``).
+``forward`` warps bilinearly (training), or, with ``warp_with_nearest``
+(the checkpoint test CLI), with K1 on the full ``warp_size`` grid, as the
+JAX ``warp`` does.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from torch import nn
 
 from ..geometry.homography import transform_poi
 from ..geometry.warp import warp_bilinear
+from ..ops.resize import resize_nearest
 from ..ops.warp import warp_nearest
 from .layers import nchw, nhwc
 from .losses import cross_entropy_map
@@ -187,8 +190,10 @@ class Reconstructor(nn.Module):
         return ret
 
     def predict(self, x: torch.Tensor, court_labels: Optional[torch.Tensor] = None,
-                values: Optional[torch.Tensor] = None, consistency: bool = True) -> dict:
-        """Inference forward.
+                values: Optional[torch.Tensor] = None, consistency: bool = True,
+                warp_mask: bool = False,
+                court_poi: Optional[torch.Tensor] = None) -> dict:
+        """Inference forward (the JAX ``Reconstructor.predict``).
 
         Args:
           x: (B, H, W, 3) float32 frames in [0, 1].
@@ -196,9 +201,15 @@ class Reconstructor(nn.Module):
             (``ops/warp.template_value_table``); needed for the warp.
           consistency: return ``consist_score``, the per-frame mean
             per-pixel cross entropy of the logits against the warped labels.
+          warp_mask: return ``warp_mask``, the (B, h, w) f32 class labels
+            (warp value * mask_classes) of K1 on the full ``warp_size``
+            grid; the consistency labels are then its nearest downsample.
+          court_poi: (N, 2) court points of interest in [-1, 1]; when given,
+            return ``poi`` (B, N, 2), their projection into the frame in
+            [0, 1] (the JAX ``project_poi``).
         Returns:
-          dict with ``logits`` (NHWC), ``theta`` (B, 1, 3, 3) f32 and, when
-          requested, ``consist_score`` (B,).
+          dict with ``logits`` (NHWC), ``theta`` (B, 1, 3, 3) f32 and the
+          outputs asked for.
         """
         cfg = self.config
         ret = {}
@@ -210,13 +221,21 @@ class Reconstructor(nn.Module):
             return ret
         theta = self.resnet_reg(self._stn_input(x, logits, uv))
         ret["theta"] = theta
+        if court_poi is not None:
+            ret["poi"] = transform_poi(theta, court_poi)
         if not cfg.use_warper:
             return ret
-        if consistency and cfg.use_unet:
+        score = consistency and cfg.use_unet
+        grid = tuple(logits.shape[1:3]) if score else None
+        if warp_mask:
+            # one full-grid K1 serves both outputs
+            labels = self.warp(theta, court_labels, values) * cfg.mask_classes
+            ret["warp_mask"] = labels
+            wm = resize_nearest(labels, grid) if score else None
+        elif score:
             w, h = cfg.warp_size
-            grid = tuple(logits.shape[1:3])
             sample = None if grid == (h, w) else grid
-            wm = self.warp(theta, court_labels, values, sample_hw=sample)
-            labels = (wm * cfg.mask_classes).to(torch.int32)
-            ret["consist_score"] = cross_entropy_map(logits, labels).mean(dim=(1, 2))
+            wm = self.warp(theta, court_labels, values, sample_hw=sample) * cfg.mask_classes
+        if score:
+            ret["consist_score"] = cross_entropy_map(logits, wm.to(torch.int32)).mean(dim=(1, 2))
         return ret

@@ -108,14 +108,17 @@ def _base_parser() -> argparse.ArgumentParser:
 def get_prediction_args(argv=None):
     """Prediction arguments (the JAX package's ``get_prediction_args``)."""
     parser = _base_parser()
-    parser.add_argument("--video_path", type=str, default=None)
-    parser.add_argument("--video_workers", type=int, default=1)
+    parser.add_argument("--video_path", type=str, default=None,
+                        help="Video file to read frames from (needs cv2)")
+    parser.add_argument("--video_workers", type=int, default=1,
+                        help="Video decode threads, each on a contiguous chunk")
     parser.add_argument("--dst_dir", type=str, default=None,
                         help="Directory where the results will be saved")
     parser.add_argument("--req_outputs", type=str,
                         default="segm_mask,warp_mask,theta,poi,consistency,debug",
-                        help="Outputs to compute and save (this port: "
-                             "theta, consistency)")
+                        help="Outputs to compute and save: segm_mask, "
+                             "warp_mask, theta, poi, consistency, debug "
+                             "(debug needs cv2)")
     parser.add_argument("--out_size", default=(1280, 720), nargs="+", type=int,
                         help="Output images size")
     parser.add_argument("--mask_type", type=str, default="gray")

@@ -853,3 +853,123 @@ def test_k1_k7bwd_route_counters(dev):
         bn_relu_bwd(y, g, vecs[0].cpu(), *vecs[1:])
     assert counts == (warp_nearest.launches, warp_nearest.vec_launches, bn_relu_bwd.launches,
                       bn_relu_bwd.vec_launches)
+
+
+def _full_output_bundle(dev, warp, dtype=torch.float32):
+    """A seeded resnet18 model at 64x36 on the card, BN folded, with the
+    NCAA court at ``warp`` (W, H), as the predict CLI's engine holds it."""
+    import os
+
+    from sports_field_homography_tpu_torch.cli.engine import ModelBundle
+    from sports_field_homography_tpu_torch.data.assets import open_court_template
+    from sports_field_homography_tpu_torch.geometry.court import load_court_poi
+    from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
+    from sports_field_homography_tpu_torch.models.layers import init_weights
+    from sports_field_homography_tpu_torch.ops.fold_bn import fold_batchnorm
+    from sports_field_homography_tpu_torch.ops.warp import template_value_table
+
+    assets = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
+    cfg = ReconstructorConfig(target_size=(64, 36), unet_size=(64, 36), warp_size=warp,
+                              resnet_name="resnet18")
+    model = Reconstructor(cfg, dtype=dtype)
+    gen = torch.Generator().manual_seed(46)
+    init_weights(model, gen)
+    with torch.no_grad():
+        model.resnet_reg.reg.weight.copy_(
+            torch.randn(model.resnet_reg.reg.weight.shape, generator=gen) * 5e-3)
+    model = fold_batchnorm(model).to(dev).eval()
+    labels = open_court_template(os.path.join(assets, "mask_ncaa_v4_nc4_m_onehot.png"), 4,
+                                 size=warp)
+    poi = load_court_poi(os.path.join(assets, "template_ncaa_v4_points.json"))
+    return ModelBundle(model, torch.from_numpy(labels).to(dev),
+                       template_value_table(labels, 4).to(dev), poi.astype(np.float32), cfg, dev)
+
+
+@pytest.mark.parametrize("warp", [(128, 72), (100, 56)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_output_program_runs_k1_once_on_the_full_grid(dev, warp, dtype):
+    """With warp_mask kept, K1 runs once a batch on the full warp grid (no
+    sampled launch), and theta and the score equal the theta+consistency
+    program's bit for bit, whose one K1 launch is on the sampled grid."""
+    from sports_field_homography_tpu_torch.cli.engine import predict_fn
+    from sports_field_homography_tpu_torch.models import reconstructor
+
+    bundle = _full_output_bundle(dev, warp, dtype)
+    frames = torch.randint(0, 256, (3, 36, 64, 3), generator=torch.Generator(device=dev)
+                           .manual_seed(47), device=dev, dtype=torch.uint8)
+    grids, k1 = [], reconstructor.warp_nearest
+
+    def recording(labels, theta, out_hw, values, sample_hw=None):
+        grids.append((tuple(out_hw), sample_hw))
+        return k1(labels, theta, out_hw, values, sample_hw)
+
+    reconstructor.warp_nearest = recording
+    try:
+        with torch.inference_mode():
+            n0 = warp_nearest.launches
+            slim = predict_fn(bundle, True, ["theta", "consist_score"])(frames)
+            n1 = warp_nearest.launches
+            full = predict_fn(bundle, True, ["theta", "consist_score", "warp_mask", "poi",
+                                             "segm_mask"])(frames)
+            n2 = warp_nearest.launches
+    finally:
+        reconstructor.warp_nearest = k1
+    hw = (warp[1], warp[0])
+    assert grids == [(hw, (36, 64)), (hw, None)] and (n1 - n0, n2 - n1) == (1, 1)
+    assert set(slim) == {"theta", "consist_score"}
+    assert set(full) == {"theta", "consist_score", "warp_mask", "poi", "segm_mask"}
+    assert torch.equal(full["theta"], slim["theta"])
+    assert torch.equal(full["consist_score"], slim["consist_score"])
+    assert full["warp_mask"].shape == (3,) + hw and full["poi"].shape[0] == 3
+    assert torch.isfinite(full["poi"]).all()
+
+
+@pytest.mark.parametrize("out_hw,sample_hw", [((720, 1280), (360, 640)), ((72, 128), (36, 64)),
+                                              ((56, 100), (36, 64)), ((360, 640), (37, 65)),
+                                              ((36, 64), (36, 64))])
+def test_downsampled_full_grid_labels_equal_sampled_labels(dev, out_hw, sample_hw):
+    """The nearest downsample of K1's full-grid labels (the consistency
+    labels when warp_mask is kept) equals K1 on the sampled grid bit for
+    bit, on the vector and the scalar store routes."""
+    from sports_field_homography_tpu_torch.ops.resize import resize_nearest
+
+    gen = torch.Generator(device=dev).manual_seed(48)
+    labels = torch.randint(0, 4, (720, 1280), generator=gen, device=dev, dtype=torch.uint8)
+    theta = torch.eye(3, device=dev).repeat(4, 1, 1) + _rand(gen, (4, 3, 3), dev, 0.05)
+    values = torch.arange(256, dtype=torch.float32, device=dev) * 0.25
+    full = warp_nearest(labels, theta, out_hw, values) * 4
+    sampled = warp_nearest(labels, theta, out_hw, values, sample_hw) * 4
+    down = resize_nearest(full, sample_hw)
+    assert down.device.type == "cuda" and torch.equal(down, sampled)
+    assert torch.equal(resize_nearest(full.cpu(), sample_hw), sampled.cpu())
+
+
+def test_full_output_program_narrows_to_uint8_on_the_card(dev):
+    """segm_mask is the uint8 argmax of the logits and warp_mask the uint8
+    labels, both made on the card: what the CLI copies to the host."""
+    from sports_field_homography_tpu_torch.cli.engine import predict_fn
+
+    bundle = _full_output_bundle(dev, (128, 72), torch.bfloat16)
+    frames = torch.randint(0, 256, (2, 36, 64, 3), generator=torch.Generator(device=dev)
+                           .manual_seed(49), device=dev, dtype=torch.uint8)
+    with torch.inference_mode():
+        got = predict_fn(bundle, False, ["segm_mask", "warp_mask"])(frames)
+        ref = bundle.model.predict(frames.float() / 255.0, bundle.court_labels,
+                                   bundle.value_table, consistency=False, warp_mask=True)
+    assert set(got) == {"segm_mask", "warp_mask"}
+    for k in got:
+        assert got[k].dtype == torch.uint8 and got[k].device.type == "cuda"
+    assert torch.equal(got["segm_mask"], ref["logits"].argmax(-1).to(torch.uint8))
+    assert torch.equal(got["warp_mask"], ref["warp_mask"].to(torch.uint8))
+    assert torch.equal(got["warp_mask"].float(), ref["warp_mask"])   # whole labels
+
+
+def test_device_prefetch_leaves_orig_img_on_the_host(dev):
+    from sports_field_homography_tpu_torch.data.loader import device_prefetch
+
+    batches = [{"image": np.full((2, 4, 5, 3), i, np.uint8), "name": ["a", "b"],
+                "orig_img": np.full((2, 8, 10, 3), i, np.uint8)} for i in range(3)]
+    out = list(device_prefetch(iter(batches), dev))
+    for i, b in enumerate(out):
+        assert b["image"].device.type == "cuda" and int(b["image"][0, 0, 0, 0]) == i
+        assert isinstance(b["orig_img"], np.ndarray) and b["orig_img"][0, 0, 0, 0] == i

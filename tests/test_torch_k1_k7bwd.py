@@ -30,6 +30,7 @@ from sports_field_homography_tpu.ops.interval_warp import (_nearest_subsample_id
 from sports_field_homography_tpu_torch.data.assets import open_court_template
 from sports_field_homography_tpu_torch.geometry import warp as geo
 from sports_field_homography_tpu_torch.ops import bn_relu_bwd as k7
+from sports_field_homography_tpu_torch.ops.resize import nearest_index
 from sports_field_homography_tpu_torch.ops import warp as k1
 
 COURT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -67,7 +68,7 @@ def test_grid_constants_are_the_grids_f32(out_hw, sample_hw):
     if sample_hw is not None:
         for n_full, n_sub, ratio in ((full_w, wo, x_ratio), (full_h, ho, y_ratio)):
             idx = np.minimum(np.floor(np.arange(n_sub, dtype=F32) * F32(ratio)), F32(n_full - 1))
-            np.testing.assert_array_equal(idx, geo._subsample_index(n_full, n_sub, None).numpy())
+            np.testing.assert_array_equal(idx, nearest_index(n_full, n_sub).float().numpy())
             np.testing.assert_array_equal(idx, np.asarray(_nearest_subsample_idx(n_full, n_sub)))
     else:
         assert x_ratio == 1.0 and y_ratio == 1.0

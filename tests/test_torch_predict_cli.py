@@ -112,9 +112,9 @@ def test_port_cli_matches_jax_cli(workspace, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--req_outputs", "theta,warp_mask"], "warp_mask"),
-    (["--video_path", "clip.mp4"], "video"),
-    (["--resume"], "resume"),
+    (["--num_hosts", "2"], "multi-device"),
+    (["--coordinator", "localhost:1234"], "multi-device"),
+    (["--req_outputs", "theta,segm_mask", "--mask_type", "foo"], "mask_type foo"),
     (["--num_devices", "2"], "multi-device"),
 ])
 def test_port_cli_names_unported_flags(workspace, tmp_path, extra, match):
