@@ -111,6 +111,28 @@ its seconds:
    the full 640x360 warp grid, K2 (one- and two-input), K3 and K7-fwd's
    norm launched; then in f32, CUDA against the CPU: every score within
    rtol 1e-3.
+10. train example conf: ``conf/train_reconstructor.yaml.example`` as JSON
+   (the card's machine has no PyYAML) over 57 synthetic 640x360 frames:
+   batch 26 (two full batches and a true tail of 5), bf16, the conf's
+   host augmentation (jitter, blur, hflip), focal / MSE / RRMSE / focal,
+   RMSprop, weight decay 1e-6, TensorBoard at ``log_dir`` (or the logged
+   line that disables it), a validation after step 3.  Every training
+   kernel's launches counted from 0 around the run, with the routes of
+   phase 5; the steps' host seconds and loader waits; ms/step of the
+   conf's step at batch 26 (float32 frames copied from pinned memory, the
+   consistency gate shut) on CUDA events.  Then ``grad_accum 2`` with
+   ``tail pad`` at batch 8: one optimizer step per two batches (the last
+   micro-batch the true tail), the same route checks.  Then the SIGTERM
+   save and ``--resume``: the CLI as a child process under its own cuDNN
+   settings at batch 8 with augmentation,
+   validation and async checkpoints, twice uninterrupted, then SIGTERM'd
+   after its third step and resumed; the resumed weights equal an
+   uninterrupted run's bit for bit where the two uninterrupted runs are
+   bit-equal, and elsewhere stay within ``RESUME_SPREAD`` times their
+   spread.
+11. predict resnet50: the predict path with a resnet50 STN at 640x360,
+   batch 8, f32 CUDA (TF32 off) against the CPU (theta <= 2e-4), then the
+   bf16 batch time.
 
 The last two lines are JSON: the kernel table (each kernel's launches in
 the deconv predict run, K1's in the png full-output run, whose full grid
@@ -1642,19 +1664,63 @@ def module_parity(size, batch_size, seed, bilinear=False, modules=UNET_MODULES):
     return result
 
 
+def train_cli_counted(conf, tag, bilinear=False):
+    """The train CLI in-process on ``conf`` with every training kernel's
+    counts set to 0 just before and read just after: every bf16 K2, K5, K3
+    and K3-bwd launch must have taken the tensor-core route, every K7-bwd
+    call the 16-byte route, and every training kernel (K3 and K3-bwd but
+    for the bilinear UNet, where they must not run) must have launched.
+    Returns (the CLI's history, the launch counts)."""
+    import torch
+
+    from sports_field_homography_tpu_torch.cli import train as train_cli
+    from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_norm, bn_relu_stats
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2, deconv2x2_backward
+    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3
+
+    counters = {"conv3x3": conv3x3, "deconv2x2": deconv2x2,
+                "deconv2x2_backward": deconv2x2_backward, "wgrad3x3": wgrad3x3,
+                "bn_relu_bwd": bn_relu_bwd, "bn_relu_stats": bn_relu_stats,
+                "bn_relu_norm": bn_relu_norm}
+    for fn in counters.values():
+        fn.launches = 0
+    conv3x3.stats_launches = conv3x3.dual_launches = conv3x3.tc_launches = 0
+    wgrad3x3.tc_launches = deconv2x2.tc_launches = deconv2x2_backward.tc_launches = 0
+    bn_relu_bwd.vec_launches = 0
+    hist = train_cli.main(["-c", conf])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["conv3x3_stats"] = conv3x3.stats_launches
+    launches["conv3x3_dual"] = conv3x3.dual_launches
+    routes = {k: (counters[k].tc_launches, counters[k].launches)
+              for k in ("conv3x3", "wgrad3x3", "deconv2x2", "deconv2x2_backward")}
+    log(f"{tag}: kernel launches in the CLI run: {launches}; on the tensor cores: "
+        + ", ".join(f"{k} {t} of {n}" for k, (t, n) in routes.items())
+        + f"; K7-bwd on the 16-byte route: {bn_relu_bwd.vec_launches} of "
+        f"{bn_relu_bwd.launches}")
+    if any(t != n for t, n in routes.values()):
+        raise AssertionError(f"{tag}: a bf16 K2, K5, K3 or K3-bwd launch left the "
+                             "tensor-core route")
+    if bn_relu_bwd.vec_launches != bn_relu_bwd.launches:
+        raise AssertionError(f"{tag}: a bf16 K7-bwd call left the 16-byte route")
+    deconv_only = ("deconv2x2", "deconv2x2_backward")
+    for name, n in launches.items():
+        if n <= 0 and not (bilinear and name in deconv_only):
+            raise AssertionError(f"{tag}: {name} was never launched by the path")
+    if bilinear and any(launches[k] for k in deconv_only):
+        raise AssertionError(f"{tag}: K3 or K3-bwd was launched by the bilinear UNet")
+    return hist, launches
+
+
 def phase_train(dev, card, work, bilinear=False):
     """The train CLI through the training kernels (deconv or bilinear
     UNet), its checkpoint through the predict CLI, and the step time."""
     import torch
 
     from sports_field_homography_tpu_torch.cli import predict as predict_cli
-    from sports_field_homography_tpu_torch.cli import train as train_cli
     from sports_field_homography_tpu_torch.data.synthetic import write_synthetic_dataset
-    from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_norm, bn_relu_stats
-    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import bn_relu_bwd
-    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
-    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2, deconv2x2_backward
-    from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3
 
     variant = "bilinear" if bilinear else "flagship"
     torch.backends.cudnn.allow_tf32 = True      # the bf16 CLI's defaults
@@ -1668,39 +1734,9 @@ def phase_train(dev, card, work, bilinear=False):
             f"{time.perf_counter() - t0:.1f} s")
     conf = _train_conf(work, data, variant, unet_bilinear=bilinear)
 
-    counters = {"conv3x3": conv3x3, "deconv2x2": deconv2x2,
-                "deconv2x2_backward": deconv2x2_backward, "wgrad3x3": wgrad3x3,
-                "bn_relu_bwd": bn_relu_bwd, "bn_relu_stats": bn_relu_stats,
-                "bn_relu_norm": bn_relu_norm}
-    for fn in counters.values():
-        fn.launches = 0
-    conv3x3.stats_launches = conv3x3.dual_launches = conv3x3.tc_launches = 0
-    wgrad3x3.tc_launches = deconv2x2.tc_launches = deconv2x2_backward.tc_launches = 0
-    bn_relu_bwd.vec_launches = 0
     t0 = time.perf_counter()
-    hist = train_cli.main(["-c", conf])
-    torch.cuda.synchronize()
+    hist, launches = train_cli_counted(conf, f"train {variant}", bilinear)
     secs = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    launches["conv3x3_stats"] = conv3x3.stats_launches
-    launches["conv3x3_dual"] = conv3x3.dual_launches
-    routes = {k: (counters[k].tc_launches, counters[k].launches)
-              for k in ("conv3x3", "wgrad3x3", "deconv2x2", "deconv2x2_backward")}
-    log(f"train {variant}: kernel launches in the CLI run: {launches}; on the tensor cores: "
-        + ", ".join(f"{k} {t} of {n}" for k, (t, n) in routes.items())
-        + f"; K7-bwd on the 16-byte route: {bn_relu_bwd.vec_launches} of "
-        f"{bn_relu_bwd.launches}")
-    if any(t != n for t, n in routes.values()):
-        raise AssertionError(f"train {variant}: a bf16 K2, K5, K3 or K3-bwd launch left the "
-                             "tensor-core route")
-    if bn_relu_bwd.vec_launches != bn_relu_bwd.launches:
-        raise AssertionError(f"train {variant}: a bf16 K7-bwd call left the 16-byte route")
-    deconv_only = ("deconv2x2", "deconv2x2_backward")
-    for name, n in launches.items():
-        if n <= 0 and not (bilinear and name in deconv_only):
-            raise AssertionError(f"train {variant}: {name} was never launched by the path")
-    if bilinear and any(launches[k] for k in deconv_only):
-        raise AssertionError("train bilinear: K3 or K3-bwd was launched by the bilinear UNet")
     steps = hist["steps"]
     if len(steps) != 3 or len(hist["validations"]) != 1:
         raise AssertionError(f"train {variant}: {len(steps)} steps and "
@@ -1738,6 +1774,258 @@ def phase_train(dev, card, work, bilinear=False):
         f"{BATCH * 1000.0 / ms:.1f} img/s (CUDA events, median of 5 steps after "
         f"2 warm-up) [{card}]")
     return launches, hist["cp_dir"], data
+
+
+# the example conf's augmentation (conf/train_reconstructor.yaml.example)
+EXAMPLE_AUG = {"apperance": {"jitter": {"brightness": 0.35, "contrast": 0.35,
+                                        "saturation": 0.25, "hue": 0.25}, "blur": 5},
+               "geometric": {"hflip": 0.5}}
+EXAMPLE_BATCH = 26
+EXAMPLE_N_TRAIN = 2 * EXAMPLE_BATCH + 5      # a ragged tail batch of 5
+
+# the resumed run's rms rel-L2 from an uninterrupted run, at most this
+# times the two uninterrupted runs' (where they are not bit-equal)
+RESUME_SPREAD = 4.0
+# the train CLI in a child process, under the CLI's own settings
+TRAIN_CHILD = ("import sys\n"
+               "sys.path.insert(0, sys.argv[1])\n"
+               "from sports_field_homography_tpu_torch.cli.train import main\n"
+               "main(sys.argv[2:])\n")
+
+
+def _train_child(argv, out_path, signal_after=None):
+    """Run the train CLI as a child process (``TRAIN_CHILD``) on ``argv``,
+    its output in ``out_path``.  With ``signal_after``, send it SIGTERM once
+    that text is in its output.  Returns (exit code, output)."""
+    import signal
+
+    with open(out_path, "w") as out:
+        p = subprocess.Popen([sys.executable, "-c", TRAIN_CHILD, REPO] + argv, cwd=REPO,
+                             stdout=out, stderr=subprocess.STDOUT)
+    try:
+        if signal_after is not None:
+            deadline = time.time() + 300
+            while signal_after not in open(out_path).read():
+                if p.poll() is not None or time.time() > deadline:
+                    raise AssertionError(f"train child: no '{signal_after}' before it ended:\n"
+                                         + open(out_path).read()[-3000:])
+                time.sleep(0.05)
+            p.send_signal(signal.SIGTERM)
+        rc = p.wait(timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return rc, open(out_path).read()
+
+
+def _resume_check(work, data, card):
+    """An augmented train run (batch 8, 2 epochs, validation every 5 steps,
+    async epoch checkpoints) as a child process twice uninterrupted; then
+    SIGTERM'd after its third step and resumed with ``--resume``, all under
+    the CLI's own cuDNN settings.  The resumed run's final weights must
+    equal the first run's bit for bit where the two uninterrupted runs are
+    bit-equal; over the other tensors their rms rel-L2 from the first run
+    may be at most ``RESUME_SPREAD`` times the two runs' own."""
+    import torch
+
+    runs = {}
+    for name in ("run_a", "run_b", "stopped"):
+        conf = _train_conf(work, data, name, aug=EXAMPLE_AUG, epochs=2, val_step_n=5,
+                           async_ckpt=True)
+        if name != "stopped":
+            rc, out = _train_child(["-c", conf], os.path.join(work, f"{name}.log"))
+        else:
+            rc, out = _train_child(["-c", conf], os.path.join(work, f"{name}.log"),
+                                   signal_after="step 3:")
+            cp = os.path.join(work, "train", name)
+            if rc != 0 or "Saved interrupt" not in out:
+                raise AssertionError(f"resume: the SIGTERM'd run exited {rc} without its "
+                                     "save:\n" + out[-3000:])
+            missing = [f for f in ("last.pth", "last_state.pth", "last_state.sched.json")
+                       if not os.path.exists(os.path.join(cp, f))]
+            if missing:
+                raise AssertionError(f"resume: the SIGTERM'd run did not write {missing}")
+            with open(os.path.join(cp, "last_state.sched.json")) as f:
+                sched = json.load(f)
+            log(f"resume: SIGTERM after step 3 saved at {sched}")
+            rc, out = _train_child(["-c", conf, "--resume"], os.path.join(work, "resumed.log"))
+            if "Exact resume" not in out:
+                raise AssertionError("resume: the resumed run did not resume exactly:\n"
+                                     + out[-3000:])
+        if rc != 0:
+            raise AssertionError(f"resume: {name} exited {rc}:\n" + out[-3000:])
+        runs[name] = torch.load(os.path.join(work, "train", name, "CP_epoch2.pth"),
+                                map_location="cpu", weights_only=True)
+    a, b, r = runs["run_a"], runs["run_b"], runs["stopped"]
+    equal, rel_ab, rel_ra = 0, [], []
+    for k in a:
+        if torch.equal(a[k], b[k]):
+            equal += 1
+            if not torch.equal(r[k], a[k]):
+                d = (r[k].double() - a[k].double()).abs().max().item()
+                raise AssertionError(f"resume: {k} differs from the uninterrupted run's "
+                                     f"({d:.3e}) where two uninterrupted runs are bit-equal")
+            continue
+        norm = max(a[k].double().norm().item(), 1e-30)
+        rel_ab.append((a[k].double() - b[k].double()).norm().item() / norm)
+        rel_ra.append((r[k].double() - a[k].double()).norm().item() / norm)
+    msg = (f"resume: resumed vs uninterrupted run, {len(a)} tensors: {equal} bit-equal in both "
+           f"uninterrupted runs and after the resume")
+    if rel_ab:
+        # three runs with the same rounding noise: tensor by tensor the
+        # resumed one is the further from run a about half the time, so the
+        # spread is compared over all differing tensors (rms of rel-L2); a
+        # resume off by a step moves them by the step's update, which
+        # rounding does not reach
+        rms_ab = float(np.sqrt(np.mean(np.square(rel_ab))))
+        rms_ra = float(np.sqrt(np.mean(np.square(rel_ra))))
+        msg += (f"; the other {len(rel_ab)}: rms rel-L2 resumed vs run a {rms_ra:.3e}, "
+                f"run b vs run a {rms_ab:.3e}, {sum(x > y for x, y in zip(rel_ra, rel_ab))} "
+                f"tensors further than run b")
+        if not rms_ra <= RESUME_SPREAD * rms_ab:
+            raise AssertionError(msg + f": beyond {RESUME_SPREAD}x the runs' spread")
+    log(msg + f" [{card}]")
+
+
+def phase_train_example(dev, card, work):
+    """The train CLI on the example conf (``conf/train_reconstructor.yaml
+    .example``, as JSON): 640x360, batch 26, bf16, host augmentation,
+    focal / MSE / RRMSE / focal, RMSprop, weight decay 1e-6, TensorBoard at
+    ``log_dir``, over 57 synthetic frames (a ragged tail batch of 5) with a
+    validation after the third step; its kernels' counts and routes, its
+    step times and the loader's wait.  Then a ``grad_accum 2`` + ``tail
+    pad`` run at batch 8 (one optimizer step per two batches, the last
+    micro-batch the true 1-row tail), ms/step of the example conf's step at
+    batch 26 on CUDA events, and the SIGTERM / ``--resume`` check
+    (``_resume_check``)."""
+    import torch
+
+    from sports_field_homography_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    torch.backends.cudnn.allow_tf32 = True      # the bf16 CLI's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = os.path.join(work, "synth_example")
+    t0 = time.perf_counter()
+    write_synthetic_dataset(data, EXAMPLE_N_TRAIN, BATCH, COURT_IMG, COURT_POI,
+                            size=(640, 360), seed=3)
+    log(f"train example conf: wrote {EXAMPLE_N_TRAIN + BATCH} synthetic 640x360 samples in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log_dir = os.path.join(work, "runs", "example")
+    conf = _train_conf(work, data, "example", batchsize=EXAMPLE_BATCH, aug=EXAMPLE_AUG,
+                       log_dir=log_dir, consist_start_iter=25000, val_step_n=3)
+    t0 = time.perf_counter()
+    hist, launches = train_cli_counted(conf, "train example conf")
+    secs = time.perf_counter() - t0
+    steps = hist["steps"]
+    if len(steps) != 3 or len(hist["validations"]) != 1:
+        raise AssertionError(f"train example conf: {len(steps)} steps and "
+                             f"{len(hist['validations'])} validations, expected 3 and 1")
+    for i, st in enumerate(steps):
+        if not all(np.isfinite(v) for v in st.values()):
+            raise AssertionError(f"train example conf: step {i + 1} has a non-finite loss: {st}")
+        log(f"train example conf: step {i + 1}: " + ", ".join(f"{k} {v:.5f}"
+                                                             for k, v in st.items()))
+    val = hist["validations"][0]
+    if not all(np.isfinite(v) for v in val.values()):
+        raise AssertionError(f"train example conf: non-finite validation result {val}")
+    events = [f for f in os.listdir(log_dir)] if os.path.isdir(log_dir) else []
+    log(f"train example conf: validation {json.dumps(val)}; TensorBoard "
+        + (f"written ({', '.join(events)})" if events else "disabled (tensorboard does not "
+           "import here)") + f"; CLI total {secs:.1f} s [{card}]")
+    log(f"train example conf: host seconds a step (loader wait included) "
+        f"{[round(st['seconds'], 4) for st in steps]}, loader wait "
+        f"{[round(st['wait'], 4) for st in steps]} (step 1 includes the first batch's "
+        f"augmentation; step 3 is the 5-sample tail) [{card}]")
+
+    # the loader alone over the same 57 frames (host clock): its steady rate,
+    # which 3 steps of the CLI run, prefetching 2 batches ahead, do not show
+    from sports_field_homography_tpu_torch.cli.train import prepare_dataloader
+
+    for aug, workers in ((EXAMPLE_AUG, 8), (EXAMPLE_AUG, 1), (None, 8)):
+        loader = prepare_dataloader(f"{data}/frames", f"{data}/masks", f"{data}/anno",
+                                    ["poi", "reproj_mse"], ["val_game"], EXAMPLE_BATCH,
+                                    (640, 360), num_workers=workers, aug=aug)[0]
+        t0 = time.perf_counter()
+        n = sum(len(b["name"]) for b in loader)
+        per_batch = (time.perf_counter() - t0) / n * EXAMPLE_BATCH
+        log(f"train example conf: the train loader alone, {'with' if aug else 'without'} "
+            f"augmentation, {workers} thread(s): {per_batch:.3f} s a batch of "
+            f"{EXAMPLE_BATCH} ({n} frames) [{card}]")
+
+    conf = _train_conf(work, data, "accum", grad_accum=2, tail="pad", val_step_n=100)
+    hist, accum = train_cli_counted(conf, "train grad_accum 2 + tail pad")
+    steps = hist["steps"]
+    n_batches = -(-EXAMPLE_N_TRAIN // BATCH)
+    if len(steps) != n_batches // 2:
+        raise AssertionError(f"train grad_accum 2: {len(steps)} optimizer steps for "
+                             f"{n_batches} batches, expected {n_batches // 2}")
+    if not all(np.isfinite(v) for st in steps for v in st.values()):
+        raise AssertionError(f"train grad_accum 2: a non-finite loss: {steps}")
+    log(f"train grad_accum 2 + tail pad: {len(steps)} optimizer steps for {n_batches} "
+        f"batches of {BATCH} (the last a true tail of {EXAMPLE_N_TRAIN % BATCH}); Tot_loss "
+        f"{[round(st['Tot_loss'], 5) for st in steps]}")
+
+    ms = cuda_ms(flagship_train_step(dev, EXAMPLE_BATCH, example=True), warmup=2, runs=5)
+    log(f"train example conf: 640x360 bf16 batch {EXAMPLE_BATCH}, float32 frames copied "
+        f"from pinned host memory, consistency gate shut: {ms:.1f} ms/step, "
+        f"{EXAMPLE_BATCH * 1000.0 / ms:.1f} img/s (CUDA events, median of 5 steps after "
+        f"2 warm-up) [{card}]")
+    _resume_check(work, data, card)
+    return launches
+
+
+def phase_predict_resnet50(dev, card):
+    """The predict path with a resnet50 STN at 640x360, batch 8: f32 CUDA
+    (TF32 off) against the CPU on the same seeded weights and frames
+    (theta max-abs <= 2e-4), then the bf16 batch time (BN folded)."""
+    import torch
+
+    from sports_field_homography_tpu_torch.data.assets import open_court_template
+    from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
+    from sports_field_homography_tpu_torch.models.layers import init_weights
+    from sports_field_homography_tpu_torch.ops.fold_bn import fold_batchnorm
+    from sports_field_homography_tpu_torch.ops.warp import template_value_table
+
+    cfg = ReconstructorConfig(resnet_name="resnet50", warp_size=(1280, 720))
+    model = Reconstructor(cfg)
+    gen = torch.Generator().manual_seed(0)
+    init_weights(model, gen)
+    with torch.no_grad():      # fresh init regresses identity: vary theta
+        model.resnet_reg.reg.weight.copy_(
+            torch.randn(model.resnet_reg.reg.weight.shape, generator=gen) * 5e-3)
+    fold_batchnorm(model).eval()
+    labels = open_court_template(COURT_IMG, 4, size=(1280, 720))
+    frames = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (BATCH, 360, 640, 3), dtype=np.uint8))
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    for device in ("cuda", "cpu"):
+        m = model.to(device)
+        with torch.inference_mode():
+            p = m.predict(frames.to(device).float() / 255.0,
+                          torch.from_numpy(labels).to(device),
+                          template_value_table(labels, 4).to(device))
+        res[device] = p["theta"].float().cpu()
+    d_theta = (res["cuda"] - res["cpu"]).abs().max().item()
+    log(f"predict resnet50 f32 CUDA vs CPU, batch {BATCH}: theta max abs {d_theta:.3e} "
+        f"(bound 2e-4); theta spread {res['cpu'].std(0).max().item():.3e}")
+    if not d_theta <= 2e-4:
+        raise AssertionError("predict resnet50: f32 CUDA and CPU theta differ beyond 2e-4")
+    torch.backends.cudnn.allow_tf32 = True
+    bf16 = Reconstructor(cfg, dtype=torch.bfloat16)
+    bf16.load_state_dict(model.state_dict())
+    bf16 = bf16.to(dev).eval()
+    xb, lab, table = (frames.to(dev), torch.from_numpy(labels).to(dev),
+                      template_value_table(labels, 4).to(dev))
+
+    def step():
+        with torch.inference_mode():
+            bf16.predict(xb.float() / 255.0, lab, table)
+
+    ms = cuda_ms(step, warmup=2, runs=5)
+    log(f"predict resnet50: theta+consistency 640x360 bf16 batch {BATCH}: {ms:.2f} ms/batch, "
+        f"{BATCH * 1000.0 / ms:.1f} frames/s (CUDA events, median of 5) [{card}]")
 
 
 def _module_replay(size, b, seed, **kw):
@@ -1928,10 +2216,15 @@ def phase_test_cli(dev, card, work, cp_dir, data):
     return launches
 
 
-def flagship_train_step(dev, batch_size, bilinear=False):
+def flagship_train_step(dev, batch_size, bilinear=False, example=False):
     """A closure running one flagship (or bilinear-UNet) bf16 train step
     (seeded random weights) on a fixed batch of synthetic 640x360 court
-    renders."""
+    renders: uint8 frames on the device, the consistency gate open; with
+    ``example``, the example conf's step as its CLI runs it: float32
+    frames (what augmentation yields) copied each step from pinned host
+    memory with ``non_blocking`` on the compute stream, as
+    ``device_prefetch`` does, and the gate shut (consist_start_iter
+    25000)."""
     import torch
 
     from sports_field_homography_tpu_torch.data.assets import open_court_template
@@ -1952,15 +2245,24 @@ def flagship_train_step(dev, batch_size, bilinear=False):
     batch = {"image": frames, "mask": labels.astype(np.int64),
              "weight": np.ones((b,), np.float32), "poi": anno[..., :2].astype(np.float32),
              "nonzeros": nz, "num_nonzero": np.maximum(nz.sum(1), 1.0).astype(np.float32)}
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     court = (torch.from_numpy(open_court_template(COURT_IMG, 4, size=(640, 360)))
              .float().to(dev) / 4)
     poi = torch.from_numpy(load_court_poi(COURT_POI).astype(np.float32)).to(dev)
     cfg = LossConfig(seg_loss="focal", rec_loss="MSE", reproj_loss="RRMSE",
                      consist_loss="focal", seg_lambda=1.0, rec_lambda=1.0,
-                     reproj_lambda=8.0, consist_lambda=1.0, batch_size=b)
+                     reproj_lambda=8.0, consist_lambda=1.0, batch_size=b,
+                     consist_start_iter=25000 if example else 0)
     opt = make_optimizer("RMSprop", model.parameters(), 1e-4, 1e-6)
-    return lambda: train_step(model, opt, batch, 0, court, poi, cfg)
+    if not example:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        return lambda: train_step(model, opt, batch, 0, court, poi, cfg)
+    batch["image"] = frames.astype(np.float32) / 255.0
+    host = {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
+
+    def step():
+        train_step(model, opt, {k: v.to(dev, non_blocking=True) for k, v in host.items()},
+                   0, court, poi, cfg)
+    return step
 
 
 def flagship_predict_step(dev, batch_size, bilinear=False, full_outputs=False):
@@ -2064,6 +2366,8 @@ def main() -> int:
     run("train bilinear", phase_train, dev, card, work, True)
     run("train parity bilinear", phase_bilinear_parity)
     run("test CLI", phase_test_cli, dev, card, work, cp_dir, data)
+    run("train example conf", phase_train_example, dev, card, work)
+    run("predict resnet50", phase_predict_resnet50, dev, card)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")
 

@@ -20,7 +20,8 @@ from ..ops.fold_bn import fold_batchnorm
 from ..ops.warp import template_value_table
 from ..utils.config import resolve_asset
 
-__all__ = ["ModelBundle", "build_model", "predict_fn", "discover_conf", "dtype_from_str"]
+__all__ = ["ModelBundle", "build_model", "check_loadable", "predict_fn", "discover_conf",
+           "dtype_from_str"]
 
 
 def dtype_from_str(name: str) -> torch.dtype:
@@ -36,6 +37,15 @@ class ModelBundle:
     court_poi: np.ndarray             # (N, 2) in [-1, 1], host
     config: ReconstructorConfig
     device: torch.device
+
+
+def check_loadable(load: Optional[str]) -> None:
+    """Refuse weights other than a reference-keyed ``.pth``."""
+    if load is not None and not load.endswith(".pth"):
+        raise NotImplementedError(
+            f"{load}: only reference-keyed .pth checkpoints load so far; "
+            ".msgpack/orbax import is ROADMAP.md queue 1 step 6 (export one "
+            "with the JAX package's save_torch_checkpoint)")
 
 
 def build_model(args, load: Optional[str] = None, seed: int = 0,
@@ -60,17 +70,13 @@ def build_model(args, load: Optional[str] = None, seed: int = 0,
         use_resnet=args.use_resnet, resnet_name=args.resnet_name,
         resnet_input=args.resnet_input, use_warper=args.use_warper,
         warp_size=tuple(args.warp_size), warp_with_nearest=warp_with_nearest)
+    check_loadable(load)
     model = Reconstructor(cfg, dtype=dtype)
     if load is None:
         init_weights(model, torch.Generator().manual_seed(seed))
-    elif load.endswith(".pth"):
+    else:
         state = torch.load(load, map_location="cpu", weights_only=True)
         model.load_state_dict(state, strict=True)
-    else:
-        raise NotImplementedError(
-            f"{load}: only reference-keyed .pth checkpoints load so far; "
-            ".msgpack/orbax import is ROADMAP.md queue 1 step 6 (export one "
-            "with the JAX package's save_torch_checkpoint)")
     if fold_bn:
         fold_batchnorm(model)
     model = model.to(device).eval()

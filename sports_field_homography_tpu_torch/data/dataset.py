@@ -1,7 +1,7 @@
 """Datasets (port of ``data/dataset.py``): ``BasicDataset`` on an image
-directory, with the masks and annotations of training, ``VideoDataset``
-(cv2, imported when it is used) and ``split_on_train_val``.  Augmentation
-and UV ``.tif`` masks come later (ROADMAP.md queue 1).
+directory, with the masks, UV maps, annotations and augmentation of
+training, ``VideoDataset`` and ``split_on_train_val``.  cv2 is imported
+only where it is used: the video source and the UV ``.tif`` masks.
 """
 from __future__ import annotations
 
@@ -16,7 +16,9 @@ from .assets import resize_nearest_pil
 from .image import read_image
 
 __all__ = ["BasicDataset", "VideoDataset", "split_on_train_val", "preprocess_poi",
-           "preprocess_weight"]
+           "preprocess_weight", "preprocess_uv_mask", "aug_sample_seed"]
+
+MAX_VALUE_UINT16 = np.iinfo(np.uint16).max
 
 
 def split_on_train_val(img_dir: str, val_names: Sequence[str],
@@ -56,22 +58,55 @@ def preprocess_weight(reproj_mse) -> np.ndarray:
     return np.array([y], dtype=np.float32)
 
 
+def preprocess_uv_mask(uv_mask: np.ndarray, target_size):
+    """A (H, W, 3) uint16 UV ``.tif`` -> (labels (H, W) int64, uv (H, W, 2)
+    float32 in [0, 1]), resized with cv2's ``INTER_NEAREST``."""
+    import cv2
+
+    if uv_mask.dtype != np.uint16:
+        raise ValueError(f"a UV mask is uint16, not {uv_mask.dtype}")
+    uv_mask = cv2.resize(uv_mask, dsize=tuple(target_size), interpolation=cv2.INTER_NEAREST)
+    return (uv_mask[:, :, 0].astype(np.int64),
+            (uv_mask[:, :, 1:3] / float(MAX_VALUE_UINT16)).astype(np.float32))
+
+
+def aug_sample_seed(aug_seed: Optional[int], epoch: int, index: int) -> int:
+    """The augmentation seed of sample ``index`` in ``epoch``: drawn from
+    ``default_rng([aug_seed, epoch, index])``, so it does not depend on
+    which loader thread reads the sample; without ``aug_seed``, from
+    numpy's global generator (a different draw every run)."""
+    if aug_seed is None:
+        return int(np.random.randint(2147483647))
+    return int(np.random.default_rng([int(aug_seed), int(epoch), int(index)])
+               .integers(2147483647))
+
+
 class BasicDataset:
-    """Frames ``img_dir/<id>`` resized to ``target_size`` (W, H), as uint8:
-    the division by 255 happens on the device (bit-identical, and 4x fewer
-    bytes to copy), as with the JAX package's ``raw_uint8``.
+    """Frames ``img_dir/<id>`` resized to ``target_size`` (W, H).  With
+    ``raw_uint8`` (the default) frames stay uint8 and the division by 255
+    happens on the device (bit-identical, and 4x fewer bytes to copy), as
+    with the JAX package's ``raw_uint8``; else they are float32 in [0, 1].
 
     With ``mask_dir`` / ``anno_dir`` (training) a sample also carries
-    ``mask`` ((H, W) int64 labels, PNG, NEAREST-resized), ``weight`` and,
-    from the annotation JSON's ``anno_keys``, ``poi`` / ``nonzeros`` /
-    ``num_nonzero`` and the ``reproj_mse`` weight.  ``keep_orig_img``
-    (the predict CLI's debug renders) adds ``orig_img``, the frame at its
-    file's own size as (H, W, 3) uint8 BGR.
+    ``mask`` ((H, W) int64 labels: a NEAREST-resized PNG, or with
+    ``use_uv`` channel 0 of a uint16 ``.tif`` whose channels 1-2 give
+    ``uv``, read with cv2), ``weight`` and, from the annotation JSON's
+    ``anno_keys``, ``poi`` / ``nonzeros`` / ``num_nonzero`` and the
+    ``reproj_mse`` weight.  ``keep_orig_img`` (the predict CLI's debug
+    renders) adds ``orig_img``, the frame at its file's own size as
+    (H, W, 3) uint8 BGR.
+
+    ``aug`` (the conf's dict) augments each sample on its float image
+    (``data/augmentation.py``) with the seed ``aug_sample_seed(aug_seed,
+    epoch, index)``; ``set_epoch`` sets the epoch.  With ``raw_uint8`` the
+    augmented image is rounded back to uint8.
     """
 
     def __init__(self, ids: Sequence[str], img_dir: str, target_size=(1280, 720),
                  mask_dir: Optional[str] = None, anno_dir: Optional[str] = None,
-                 anno_keys: Optional[Sequence[str]] = None, keep_orig_img: bool = False):
+                 anno_keys: Optional[Sequence[str]] = None, keep_orig_img: bool = False,
+                 use_uv: bool = False, aug=None, aug_seed: Optional[int] = None,
+                 raw_uint8: bool = True):
         if anno_dir is not None and anno_keys is None:
             raise ValueError("anno_dir needs anno_keys")
         self.ids = list(ids)
@@ -81,9 +116,22 @@ class BasicDataset:
         self.anno_dir = anno_dir
         self.anno_keys = list(anno_keys or [])
         self.keep_orig_img = keep_orig_img
+        self.use_uv = use_uv
+        self.raw_uint8 = raw_uint8
+        self.aug_seed = aug_seed
+        self._aug_epoch = 0
+        self.aug = None
+        if aug is not None:
+            from .augmentation import AugmentationPipeline
+
+            self.aug = AugmentationPipeline(aug, self.target_size, use_uv=use_uv)
 
     def __len__(self) -> int:
         return len(self.ids)
+
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch of the per-sample augmentation seeds."""
+        self._aug_epoch = int(epoch)
 
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
         name = self.ids[i]
@@ -91,30 +139,48 @@ class BasicDataset:
         img = read_image(os.path.join(self.img_dir, name), self.target_size)
         if img.ndim == 2:
             img = img[..., None]
-        sample = {"name": stem, "image": img}
+        if self.aug is not None or not self.raw_uint8:
+            img = img.astype(np.float32) / 255.0
+        sample = {"name": stem}
         if self.keep_orig_img:
             orig = read_image(os.path.join(self.img_dir, name))
             # RGB(A) -> BGR, as cv2.cvtColor(COLOR_RGB2BGR); gray -> 3 channels
             sample["orig_img"] = np.ascontiguousarray(
                 orig[..., 2::-1] if orig.ndim == 3 else np.repeat(orig[..., None], 3, -1))
         if self.mask_dir is None and self.anno_dir is None:
+            sample["image"] = img
             return sample
         sample["weight"] = np.float32(1.0)
-        if self.mask_dir is not None:
-            mask = read_image(os.path.join(self.mask_dir, stem + ".png"))
-            sample["mask"] = resize_nearest_pil(mask, self.target_size).astype(np.int64)
+        mask = uv = poi = nonzeros = None
+        if self.mask_dir is not None and self.use_uv:
+            import cv2
+
+            mask, uv = preprocess_uv_mask(
+                cv2.imread(os.path.join(self.mask_dir, stem + ".tif"), -1), self.target_size)
+        elif self.mask_dir is not None:
+            mask = resize_nearest_pil(read_image(os.path.join(self.mask_dir, stem + ".png")),
+                                      self.target_size).astype(np.int64)
         if self.anno_dir is not None:
             with open(os.path.join(self.anno_dir, stem + ".json")) as f:
                 data = json.load(f)
             for k in self.anno_keys:
                 anno = np.asarray(data[k], dtype="float")
                 if k == "poi":
-                    (sample["poi"], sample["nonzeros"],
-                     sample["num_nonzero"]) = preprocess_poi(anno)
+                    poi, nonzeros, sample["num_nonzero"] = preprocess_poi(anno)
                 elif k == "reproj_mse":
                     sample["weight"] = preprocess_weight(anno)
                 else:
                     sample[k] = anno.astype(np.float32)
+        if self.aug is not None:
+            img, mask, uv, poi, nonzeros = self.aug(
+                img, mask, uv, poi, nonzeros,
+                seed=aug_sample_seed(self.aug_seed, self._aug_epoch, i))
+            if self.raw_uint8:
+                img = np.clip(np.rint(img * 255.0), 0.0, 255.0).astype(np.uint8)
+        sample["image"] = img
+        for k, v in (("mask", mask), ("uv", uv), ("poi", poi), ("nonzeros", nonzeros)):
+            if v is not None:
+                sample[k] = v
         return sample
 
 

@@ -2,14 +2,15 @@
 (port of ``data/loader.py``).
 
 By default batches keep one size: the tail batch is padded with copies of
-its last sample and carries ``num_valid`` (predict).  Training takes the
-true smaller tail batch (``pad_last=False``, the JAX CLI's single-device
-``tail: exact``) and a shuffle whose per-epoch order derives from
-``(seed, epoch)`` as in the JAX loader.  ``device_prefetch`` replaces the
-JAX package's ``jax.device_put`` prefetch: it copies a batch's arrays
-through pinned host memory with ``non_blocking`` copies, keeping
-``_IN_FLIGHT`` batches in flight so the copy of the next batch overlaps
-the compute of this one.
+its last sample and carries ``valid`` and ``num_valid`` (predict).
+Training takes the true smaller tail batch (``pad_last=False``).  The
+train shuffle's per-epoch order derives from ``(seed, epoch)`` as in the
+JAX loader, and ``skip_next_batches`` starts an epoch part-way through
+without reading what it skips (exact resume).
+``device_prefetch`` replaces the JAX package's ``jax.device_put``
+prefetch: it copies a batch's arrays through pinned host memory with
+``non_blocking`` copies, keeping ``_IN_FLIGHT`` batches in flight so the
+copy of the next batch overlaps the compute of this one.
 """
 from __future__ import annotations
 
@@ -43,15 +44,15 @@ class Loader:
     Yields dicts of stacked numpy arrays (names as lists) plus ``valid``
     ((B,) bool) and ``num_valid`` (int).  Samples decode on a thread pool
     of ``num_workers``; at most ``_READY_BATCHES`` batches wait ready.
-    ``shuffle`` needs a ``seed``: epoch e's order is a permutation drawn
-    from ``np.random.default_rng([seed, e])`` (``set_epoch``).
+    With ``shuffle`` and a ``seed``, epoch e's order is a permutation drawn
+    from ``np.random.default_rng([seed, e])`` (``set_epoch``, which also
+    sets the dataset's augmentation epoch); with ``seed`` None, from one
+    unseeded generator (a different order every run).
     """
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
                  shuffle: bool = False, seed: Optional[int] = None,
                  pad_last: bool = True):
-        if shuffle and seed is None:
-            raise ValueError("a shuffled Loader needs a seed")
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.num_workers = max(1, int(num_workers))
@@ -59,22 +60,34 @@ class Loader:
         self.seed = seed
         self.pad_last = pad_last
         self._epoch = 0
+        self._skip = 0
+        self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = int(epoch)
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def skip_next_batches(self, k: int) -> None:
+        """The next pass starts ``k`` batches into the epoch; the skipped
+        samples are not read."""
+        self._skip = max(0, int(k))
 
     def _order(self) -> np.ndarray:
         order = np.arange(len(self.dataset))
         if self.shuffle:
-            np.random.default_rng([int(self.seed), self._epoch]).shuffle(order)
+            rng = (self._rng if self.seed is None
+                   else np.random.default_rng([int(self.seed), self._epoch]))
+            rng.shuffle(order)
         return order
 
     def _batches_of_indices(self):
         order, bs = self._order(), self.batch_size
-        for start in range(0, len(order), bs):
+        first, self._skip = self._skip * bs, 0
+        for start in range(first, len(order), bs):
             idx = order[start:start + bs]
             valid = np.ones(len(idx), bool)
             pad = bs - len(idx) if self.pad_last else 0

@@ -79,9 +79,7 @@ class ReconstructorConfig:
         if not (self.use_unet or self.use_resnet):
             raise ValueError("need the UNet, the ResNet or both")
         if self.use_resnet and self.resnet_name not in resnet_models:
-            raise NotImplementedError(
-                f"{self.resnet_name}: only {sorted(resnet_models)} are "
-                "ported yet (ROADMAP.md, queue 1 step 3)")
+            raise ValueError(f"{self.resnet_name}: not one of {sorted(resnet_models)}")
         mode = Input.parse(self.resnet_input)
         if self.use_resnet:
             if mode is None:
@@ -113,8 +111,8 @@ class Reconstructor(nn.Module):
                                            config.unet_bilinear).items():
                 self.add_module(name, layer)
         if config.use_resnet:
-            block, layers = resnet_models[config.resnet_name]
-            self.resnet_reg = ResNetSTN(block, layers, config.stn_in_channels)
+            self.resnet_reg = ResNetSTN(in_channels=config.stn_in_channels,
+                                        **resnet_models[config.resnet_name])
 
     def forward_unet(self, x: torch.Tensor):
         """UNet with input/output resolution fitting.  x: NHWC f32."""

@@ -5,11 +5,11 @@ The model runs in eval mode (running BN statistics) with the same forward
 as training: PoI projection and the bilinear warp, or the nearest one for
 a model built with ``warp_with_nearest`` (the test CLI), which reads
 ``court_labels``.  Keys as in the JAX package:
-val_seg_score, val_rec_score, val_reproj_score, val_reproj_px,
-val_consist_score (the UV head is not trained by this port yet).  The
-loaders of this port yield the true (ragged) tail batch, so every batch
-mean is over real samples, which is what the JAX package's
-``valid``-masked means compute on its padded tail.
+val_seg_score, val_rec_score, val_uv_score, val_reproj_score,
+val_reproj_px, val_consist_score.  The validation loaders of this port
+yield the true (ragged) tail batch, so every batch mean is over real
+samples, which is what the JAX package's ``valid``-masked means compute on
+its padded tail.
 """
 from __future__ import annotations
 
@@ -38,10 +38,16 @@ def eval_step(model, batch: Dict[str, torch.Tensor], court_template, court_poi,
               use_per_sample_weights: bool = True,
               court_labels=None) -> Dict[str, torch.Tensor]:
     """Per-batch metrics (the JAX ``make_eval_step``'s ``_step``): seg and
-    rec weighted per sample, or, without ``use_per_sample_weights`` (the
-    test CLI), plain means over the samples."""
+    rec weighted per sample, UV truly per sample, or, without
+    ``use_per_sample_weights`` (the test CLI), plain means over the
+    samples."""
     preds = model(norm_img(batch["image"]), court_template, court_poi, court_labels)
-    nc = model.config.mask_classes
+    return _metrics(preds, batch, model.config.mask_classes, target_size,
+                    weight_semantics, use_per_sample_weights)
+
+
+def _metrics(preds, batch, nc, target_size, weight_semantics,
+             use_per_sample_weights) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     logits, warp = preds.get("logits"), preds.get("warp_mask")
     gt_i = batch["mask"].long()
@@ -59,6 +65,10 @@ def eval_step(model, batch: Dict[str, torch.Tensor], court_template, court_poi,
         out["seg"] = seg_rec(cross_entropy_map(logits, gt_i))
     if warp is not None:
         out["rec"] = seg_rec(mse_map(warp, gt_i.float() / float(nc)))
+    if "uv" in preds and "uv" in batch:
+        per = _per_sample(mse_map(preds["uv"], batch["uv"]))
+        out["uv"] = ((per * batch["weight"].reshape(-1).float()).mean()
+                     if use_per_sample_weights else per.mean())
     if logits is not None and warp is not None:
         labels = (warp * nc).to(torch.int32)
         out["consist"] = _per_sample(cross_entropy_map(logits, labels)).mean()
@@ -76,29 +86,45 @@ def eval_reconstructor(model, batches: Iterable[Dict[str, torch.Tensor]],
                        court_template, court_poi, target_size,
                        weight_semantics: str = "ref",
                        use_per_sample_weights: bool = True,
-                       court_labels=None) -> Dict[str, float]:
+                       court_labels=None, keep_last: bool = False) -> Dict[str, object]:
     """Validation over device batches (the JAX ``eval_reconstructor``):
-    seg/rec/consist are means over batches, reprojection means over
-    samples.  The model's train/eval mode is restored afterwards."""
+    seg/rec/uv/consist are means over batches, reprojection means over
+    samples.  ``keep_last`` adds the last batch's frames (``imgs``, NHWC
+    f32 in [0, 1]), ``logits``, ``warp_masks`` and ``uv_masks`` as host
+    arrays (the TensorBoard image panel).  The model's train/eval mode is
+    restored afterwards."""
     was_training = model.training
     model.eval()
-    sums = {"seg": 0.0, "rec": 0.0, "consist": 0.0, "reproj_sum": 0.0,
+    sums = {"seg": 0.0, "rec": 0.0, "uv": 0.0, "consist": 0.0, "reproj_sum": 0.0,
             "reproj_px_sum": 0.0}
     n_batches = n_samples = 0
+    last = None
     try:
         for batch in batches:
-            out = eval_step(model, batch, court_template, court_poi,
-                            target_size, weight_semantics,
-                            use_per_sample_weights, court_labels)
+            with torch.no_grad():
+                preds = model(norm_img(batch["image"]), court_template, court_poi,
+                              court_labels)
+                out = _metrics(preds, batch, model.config.mask_classes, target_size,
+                               weight_semantics, use_per_sample_weights)
             for k, v in out.items():
                 sums[k] += float(v)
             n_batches += 1
             n_samples += int(batch["image"].shape[0])
+            if keep_last:
+                last = (batch["image"], preds)
     finally:
         model.train(was_training)
     nb, ns = max(n_batches, 1), max(n_samples, 1)
-    return {"val_seg_score": sums["seg"] / nb,
-            "val_rec_score": sums["rec"] / nb,
-            "val_reproj_score": sums["reproj_sum"] / ns,
-            "val_reproj_px": sums["reproj_px_sum"] / ns,
-            "val_consist_score": sums["consist"] / nb}
+    result = {"val_seg_score": sums["seg"] / nb,
+              "val_rec_score": sums["rec"] / nb,
+              "val_uv_score": sums["uv"] / nb,
+              "val_reproj_score": sums["reproj_sum"] / ns,
+              "val_reproj_px": sums["reproj_px_sum"] / ns,
+              "val_consist_score": sums["consist"] / nb}
+    if last is not None:
+        result["imgs"] = norm_img(last[0]).float().cpu().numpy()
+        for key, name in (("logits", "logits"), ("warp_mask", "warp_masks"),
+                          ("uv", "uv_masks")):
+            if key in last[1]:
+                result[name] = last[1][key].float().cpu().numpy()
+    return result

@@ -133,7 +133,10 @@ def get_prediction_args(argv=None):
 def _training_parser() -> argparse.ArgumentParser:
     parser = _base_parser()
     parser.add_argument("--viz", action="store_true", default=False)
-    parser.add_argument("--resnet_pretrained", type=str, default=None)
+    parser.add_argument("--resnet_pretrained", type=str, default=None,
+                        help="Warm-start the ResNet STN from a local .pth: a "
+                             "reference-keyed state_dict, or a torchvision "
+                             "ResNet's (fc and conv1 are left out)")
     parser.add_argument("--mask_dir", dest="mask_dir", type=str, default=None)
     parser.add_argument("--anno_dir", dest="anno_dir", type=str, default=None)
     parser.add_argument("--anno_keys", dest="anno_keys", type=str, default=None)
@@ -148,23 +151,37 @@ def _training_parser() -> argparse.ArgumentParser:
     parser.add_argument("--val_step_n", dest="val_step_n", type=int, default=None)
     parser.add_argument("--cp_dir", dest="cp_dir", type=str, default=None)
     parser.add_argument("--log_dir", dest="log_dir", type=str, default=None)
-    parser.add_argument("--grad_accum", dest="grad_accum", type=int, default=1)
-    parser.add_argument("--async_ckpt", action="store_true", default=False)
-    parser.add_argument("--resume", action="store_true", default=False)
+    parser.add_argument("--grad_accum", dest="grad_accum", type=int, default=1,
+                        help="Loader batches per optimizer step (their "
+                             "gradients' mean)")
+    parser.add_argument("--async_ckpt", action="store_true", default=False,
+                        help="Write epoch checkpoints on a background thread")
+    parser.add_argument("--resume", action="store_true", default=False,
+                        help="Resume the train state (model, optimizer, "
+                             "scheduler, step) from cp_dir/last_state.pth, at "
+                             "the data-schedule position of last_state.sched.json")
     parser.add_argument("--data_seed", dest="data_seed", type=int, default=0,
-                        help="Seed of the train shuffle; each epoch's order "
-                             "derives from (seed, epoch)")
+                        help="Seed of the train shuffle and augmentation; each "
+                             "epoch's order derives from (seed, epoch). -1: "
+                             "unseeded (no exact resume)")
+    parser.add_argument("--uint8_inputs", type=int, default=None,
+                        help="Train frames as uint8 (1) or float32 (0); default: "
+                             "uint8 without augmentation, float32 with it")
     parser.add_argument("--tail", type=str, default=None,
                         choices=("exact", "pad"),
-                        help="Last train batch: 'exact' (the true smaller "
-                             "batch, the default and the one ported)")
+                        help="Last train batch: 'exact' or 'pad', one step "
+                             "on one device: the true smaller batch (the JAX "
+                             "package's masked step on a padded tail computes "
+                             "exactly the step on its real rows)")
     parser.add_argument("--rec_loss", type=str, default="MSE")
+    parser.add_argument("--uv_loss", type=str, default="MSE")
     parser.add_argument("--seg_loss", type=str, default="CE")
     parser.add_argument("--reproj_loss", type=str, default=None)
     parser.add_argument("--consist_loss", type=str, default=None)
     parser.add_argument("--consist_start_iter", type=int, default=0)
     parser.add_argument("--seg_lambda", type=float, default=2.0)
     parser.add_argument("--rec_lambda", type=float, default=2.0)
+    parser.add_argument("--uv_lambda", type=float, default=2.0)
     parser.add_argument("--reproj_lambda", type=float, default=8.0)
     parser.add_argument("--consist_lambda", type=float, default=1.0)
     parser.add_argument("--weight_semantics", type=str, default="ref",
@@ -174,7 +191,7 @@ def _training_parser() -> argparse.ArgumentParser:
 
 def get_training_args(argv=None):
     """Training arguments (the JAX package's ``get_training_args``; the
-    ones outside the ported slice are accepted and refused by the CLI)."""
+    multi-device ones are accepted and refused by the CLI)."""
     return _training_parser().parse_args(argv)
 
 

@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert len(names) >= 25, names
+        assert len(names) >= 26, names
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                      or m.startswith("sports_field_homography_tpu."))
         assert not bad, bad
@@ -43,6 +43,67 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_train_cli_runs_the_card_machines_way(tmp_path):
+    """The train CLI as the GPU machine runs it, in a fresh interpreter
+    where Pillow, cv2, PyYAML and tensorboard do not import: a JSON conf
+    with the example conf's augmentation (jitter, blur, hflip) and
+    ``log_dir`` trains (TensorBoard disabled, as logged), while ``scale``
+    and UV masks are refused before the model is built; jax never loads."""
+    code = textwrap.dedent(f"""
+        import json, sys
+        for name in ("PIL", "cv2", "yaml", "tensorboard"):
+            sys.modules[name] = None
+        sys.path.insert(0, {REPO!r})
+        from sports_field_homography_tpu_torch.cli import engine, train
+        from sports_field_homography_tpu_torch.data.synthetic import write_synthetic_dataset
+
+        root = {str(tmp_path)!r}
+        court = {COURT!r}
+        poi = court.replace("mask_ncaa_v4_nc4_m_onehot.png", "template_ncaa_v4_points.json")
+        write_synthetic_dataset(root + "/set", 4, 1, court, poi, size=(64, 36), seed=0)
+        aug = {{"apperance": {{"jitter": {{"brightness": 0.35, "hue": 0.25}}, "blur": 5}},
+               "geometric": {{"hflip": 0.5}}}}
+        conf = dict(img_dir=root + "/set/frames", mask_dir=root + "/set/masks",
+                    anno_dir=root + "/set/anno", anno_keys=["poi"], val_names=["val_game"],
+                    court_img=court, court_poi=poi, court_size=[64, 36], target_size=[64, 36],
+                    unet_size=[64, 36], warp_size=[64, 36], resnet_name="resnet18",
+                    batchsize=2, epochs=1, cp_dir=root + "/cp/", log_dir=root + "/runs",
+                    reproj_loss="RRMSE", aug=aug, compute_dtype="float32", device="cpu")
+
+        def run(**extra):
+            path = root + "/conf.json"
+            with open(path, "w") as f:
+                json.dump(dict(conf, **extra), f)
+            return train.main(["-c", path], num_data_workers=1)
+
+        hist = run()
+        assert len(hist["steps"]) == 2, hist
+
+        def refuse(**extra):
+            built = []
+            engine_build, train.build_model = train.build_model, built.append
+            try:
+                run(**extra)
+            except RuntimeError as e:
+                assert not built, "refused after the model was built"
+                return str(e)
+            finally:
+                train.build_model = engine_build
+            raise AssertionError("not refused")
+
+        assert "Pillow" in refuse(aug={{"geometric": {{"scale": [0.8, 1.0]}}}})
+        assert "cv2" in refuse(unet_uv=True)
+        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+        assert not bad, bad
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert out.stdout.rstrip().endswith("ok")
+    assert "TB logging disabled" in out.stdout
 
 
 def test_png_reader_matches_pillow_on_court_asset():

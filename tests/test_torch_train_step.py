@@ -391,11 +391,10 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
 
     base = ["--img_dir", "f", "--mask_dir", "m", "--anno_dir", "a", "--cp_dir",
             str(tmp_path), "--device", "cpu"]
-    for extra, match in ((["--aug", "x"], "augmentation"), (["--resume"], "--resume"),
-                         (["--grad_accum", "2"], "accumulation"),
-                         (["--tail", "pad"], "tail: pad"),
-                         (["--log_dir", "runs"], "TensorBoard"),
-                         (["--num_devices", "2"], "step 7")):
+    for extra, match in ((["--num_devices", "2"], "step 7"),
+                         (["--num_hosts", "2"], "step 7"),
+                         (["--load", "CP_epoch1.msgpack"], "step 6"),
+                         (["--resnet_pretrained", "resnet34"], "download")):
         with pytest.raises(NotImplementedError, match=match):
             train_cli.main(base + extra)
 
