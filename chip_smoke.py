@@ -133,6 +133,26 @@ its seconds:
 11. predict resnet50: the predict path with a resnet50 STN at 640x360,
    batch 8, f32 CUDA (TF32 off) against the CPU (theta <= 2e-4), then the
    bf16 batch time.
+12. serve: the online server (``python -m sports_field_homography_tpu_torch.serve.server``)
+   at the flagship's full width: a seeded .pth with a JSON conf.yaml, bf16,
+   BN folded, theta + poi + consistency, max batch 32, 8 ms window, buckets
+   1..32.  A child process serves; the clients run here: 32 sequential
+   requests (client p50/p99), 32 threads x 8 requests over 64 seeded
+   640x360 PNGs (requests/s, client p50/p99, the batch histogram and mean
+   occupancy from /stats), a 1280x720 PNG (400 without cv2) and a JPEG
+   (400), then SIGTERM (exit 0); a second child SIGTERM'd with 3 requests
+   parked in a 2 s window (all 200, exit 0).  In this process
+   (``create_server``): K1, K2 (one- and two-input), K3 and K7-fwd's norm
+   launched by 32 requests in one bucket-32 batch and by the same frames
+   served alone, every launch on its fast route; each frame's theta in the
+   bucket-32 batch against alone (bf16, printed, and whether the UNet's
+   logits or the STN's theta moves; f32 with TF32 off, <= 2e-4; each frame
+   nearest its own: no slice mix-up); the program's device
+   ms at every bucket and the share of the load's wall clock its batches
+   cover; f32 CUDA
+   against ``--device cpu`` on 2 frames (theta <= 2e-4, score <= 1e-3, poi
+   <= 5e-4); the host decode ms of a frame on both ``decode_png`` paths
+   (filter 0 and Sub).
 
 The last two lines are JSON: the kernel table (each kernel's launches in
 the deconv predict run, K1's in the png full-output run, whose full grid
@@ -142,13 +162,16 @@ for the f32 SIMT routes ``conv3x3_f32`` / ``deconv2x2_f32`` and
 train step's f32 parity runs; its error, times and bound),
 then ``{"ok": true, "device": {...}}``.
 """
+import collections
 import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -496,6 +519,26 @@ def _predict_launches(kernels):
     return launches
 
 
+def write_seeded_model(ckpt, bilinear=False):
+    """The flagship (UNet deconv, or bilinear, + ResNet34 img+mask) from seed
+    0, its regression head varied so that theta depends on the frame,
+    saved as a reference-keyed .pth."""
+    import torch
+
+    from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
+    from sports_field_homography_tpu_torch.models.layers import init_weights
+
+    model = Reconstructor(ReconstructorConfig(resnet_name="resnet34", resnet_input="img+mask",
+                                              unet_bilinear=bilinear))
+    gen = torch.Generator().manual_seed(0)
+    init_weights(model, gen)
+    with torch.no_grad():      # fresh init regresses identity: vary theta
+        model.resnet_reg.reg.weight.copy_(
+            torch.randn(model.resnet_reg.reg.weight.shape, generator=gen) * 5e-3)
+    os.makedirs(os.path.dirname(ckpt))
+    torch.save(model.state_dict(), ckpt)
+
+
 def phase_predict(dev, card, work, bilinear=False):
     """The predict CLI on 16 seeded frames (deconv or bilinear UNet), f32
     CUDA against the CPU on 2 frames, and the device time of a batch."""
@@ -505,8 +548,6 @@ def phase_predict(dev, card, work, bilinear=False):
     from sports_field_homography_tpu_torch.cli.engine import build_model
     from sports_field_homography_tpu_torch.data.dataset import BasicDataset
     from sports_field_homography_tpu_torch.data.png import write_png
-    from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
-    from sports_field_homography_tpu_torch.models.layers import init_weights
     from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_norm
     from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
     from sports_field_homography_tpu_torch.ops.deconv import deconv2x2
@@ -520,16 +561,8 @@ def phase_predict(dev, card, work, bilinear=False):
         for i in range(16):
             write_png(os.path.join(frames, f"{i:06d}.png"),
                       rng.integers(0, 256, size=(360, 640, 3), dtype=np.uint8))
-    model = Reconstructor(ReconstructorConfig(resnet_name="resnet34", resnet_input="img+mask",
-                                              unet_bilinear=bilinear))
-    gen = torch.Generator().manual_seed(0)
-    init_weights(model, gen)
-    with torch.no_grad():      # fresh init regresses identity: vary theta
-        model.resnet_reg.reg.weight.copy_(
-            torch.randn(model.resnet_reg.reg.weight.shape, generator=gen) * 5e-3)
     ckpt = os.path.join(work, variant, "model.pth")
-    os.makedirs(os.path.dirname(ckpt))
-    torch.save(model.state_dict(), ckpt)
+    write_seeded_model(ckpt, bilinear)
     dst = os.path.join(work, f"out_{variant}")
     flag = ["--unet_bilinear"] if bilinear else []
 
@@ -2305,6 +2338,393 @@ def flagship_predict_step(dev, batch_size, bilinear=False, full_outputs=False):
     return run
 
 
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_FRAMES = 32, 8, 64
+# the first bytes of a JFIF (JPEG) file: a body that is not a PNG
+JPEG_BODY = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00" + bytes(64)
+
+
+def _http(port, method, path, body=None):
+    """(status, parsed JSON) of one request on a fresh connection."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _post_all(port, bodies):
+    """POST every body from its own thread, all at once; [(status, JSON)]."""
+    out = [None] * len(bodies)
+
+    def post(i):
+        try:
+            out[i] = _http(port, "POST", "/predict", bodies[i])
+        except OSError as e:
+            out[i] = (None, repr(e))
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    return out
+
+
+def _quantile(values, q):
+    s = sorted(values)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+class ServerProcess:
+    """``python -m sports_field_homography_tpu_torch.serve.server`` in a
+    child process, its output drained by a thread; ``port`` once it serves."""
+
+    def __init__(self, argv):
+        self.proc = subprocess.Popen([sys.executable, "-m", f"{PKG}.serve.server"] + argv,
+                                     cwd=REPO, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines, self.port = [], None
+        found = threading.Event()
+
+        def drain():
+            for line in self.proc.stdout:
+                self.lines.append(line)
+                m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+                if m and self.port is None:
+                    self.port = int(m.group(1))
+                    found.set()
+            found.set()
+
+        self.drainer = threading.Thread(target=drain, daemon=True)
+        self.drainer.start()
+        if not found.wait(150) or self.port is None:
+            self.stop()
+            raise AssertionError("serve: the server did not start:\n"
+                                 + "".join(self.lines)[-3000:])
+
+    def stop(self, sig=signal.SIGTERM, timeout=120) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig)
+        try:
+            return self.proc.wait(timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.drainer.join(timeout=10)
+
+
+def _png_sub_filtered(img):
+    """(H, W, 3) uint8 as an RGB PNG whose rows all use filter 1 (Sub): the
+    decoder's anti-diagonal path, where ``encode_png``'s filter 0 takes the
+    shortcut."""
+    import struct
+    import zlib
+
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int32)
+    left = np.hstack([np.zeros((h, c), np.int32), x[:, :-c]])
+    raw = np.hstack([np.ones((h, 1), np.int32), (x - left) & 0xFF]).astype(np.uint8)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def _in_process_server(argv):
+    from sports_field_homography_tpu_torch.serve.server import create_server
+
+    httpd, batcher = create_server(argv + ["--port", "0"])
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, batcher
+
+
+def _close(httpd, batcher):
+    httpd.shutdown()
+    httpd.server_close()
+    batcher.close()
+
+
+def _bucket_gap(httpd, batcher, bodies, ok, what, after_batch=None):
+    """Serve ``bodies`` (32 frames) as one bucket-32 batch, call
+    ``after_batch``, then serve each frame alone (bucket 1; the window
+    shut).  Returns the largest theta difference of a frame between the
+    two, theta's spread across the frames, and the frames' thetas alone
+    (32, 3, 3).  Each frame's bucket-32
+    theta must lie nearest its own alone theta (no slice mix-up)."""
+    port = httpd.server_address[1]
+    h0 = collections.Counter(batcher.batch_hist)
+    batch = [ok(*r, f"{what} bucket 32") for r in _post_all(port, bodies)]
+    h1 = collections.Counter(batcher.batch_hist)
+    if after_batch is not None:
+        after_batch()
+    delay, batcher.max_delay = batcher.max_delay, 0.0
+    try:
+        alone = [ok(*_http(port, "POST", "/predict", b), f"{what} alone") for b in bodies]
+    finally:
+        batcher.max_delay = delay
+    if h1 - h0 != {32: 1} or batcher.batch_hist - h1 != {1: len(bodies)}:
+        raise AssertionError(f"serve {what}: not one bucket-32 batch and then buckets of 1: "
+                             f"{dict(h1 - h0)}, {dict(batcher.batch_hist - h1)}")
+    tb = np.array([r["theta"] for r in batch])
+    ta = np.array([r["theta"] for r in alone])
+    dist = np.abs(tb[:, None] - ta[None]).max(axis=(2, 3))
+    if (dist.argmin(axis=1) != np.arange(len(bodies))).any():
+        raise AssertionError(f"serve {what}: a bucket-32 response is nearer another frame's "
+                             "theta than its own (slice mix-up)")
+    return float(np.diag(dist).max()), float(ta.std(0).max()), ta
+
+
+def phase_serve(dev, card, work):
+    """The online server at the flagship's full width (seeded .pth with a
+    JSON conf.yaml, bf16, BN folded, theta + poi + consistency, max batch
+    32, 8 ms window, buckets 1..32).  Through ``python -m ...serve.server``
+    in a child process, with the clients here: 32 sequential requests
+    (p50/p99), 32 client threads x 8 requests over 64 seeded 640x360 PNGs
+    (requests/s, p50/p99, the batch histogram and mean occupancy from
+    /stats), the 400s for a 1280x720 PNG without cv2 and a JPEG, and
+    SIGTERM (exit 0); then SIGTERM with 3 requests parked in a 2 s window
+    (all 200, exit 0).  In this process with ``create_server``: the
+    kernels that 32 requests in one bucket-32 batch and the same frames
+    alone launched (counted from 0, routes asserted), each frame's theta
+    in the bucket-32 batch against alone (bf16, and f32 with TF32 off), the
+    program's device ms at every bucket, f32 CUDA against --device cpu on 2
+    frames, and the host decode ms of a frame on both ``decode_png``
+    paths."""
+    import torch
+
+    from sports_field_homography_tpu_torch.cli.engine import build_model
+    from sports_field_homography_tpu_torch.data.image import have_cv2
+    from sports_field_homography_tpu_torch.data.png import decode_png, encode_png
+    from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_norm
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2
+    from sports_field_homography_tpu_torch.ops.warp import warp_nearest
+    from sports_field_homography_tpu_torch.serve.server import _decode_frame
+
+    d = os.path.join(work, "serve")
+    ckpt = os.path.join(d, "model.pth")
+    write_seeded_model(ckpt)
+    with open(os.path.join(d, "conf.yaml"), "w") as f:      # JSON: no PyYAML here
+        json.dump({"target_size": [640, 360], "unet_size": [640, 360],
+                   "warp_size": [640, 360], "court_size": [640, 360], "mask_classes": 4,
+                   "resnet_name": "resnet34", "resnet_input": "img+mask",
+                   "court_img": COURT_IMG, "court_poi": COURT_POI}, f)
+    frames = np.random.default_rng(3).integers(0, 256, (SERVE_FRAMES, 360, 640, 3),
+                                               dtype=np.uint8)
+    bodies = [encode_png(f) for f in frames]
+
+    def ok(status, body, what):
+        if status != 200 or np.asarray(body["theta"]).shape != (3, 3) \
+                or not np.isfinite(body["theta"]).all() or not np.isfinite(body["score"]) \
+                or not np.isfinite(body["poi"]).all():
+            raise AssertionError(f"serve: {what}: {status} {str(body)[:300]}")
+        return body
+
+    # -- the entry point in a child process, clients here
+    t0 = time.perf_counter()
+    server = ServerProcess(["--load", ckpt, "--port", "0"])
+    start_s = time.perf_counter() - t0
+    try:
+        port = server.port
+        alone, seq_ms = [], []
+        for i in range(32):
+            t = time.perf_counter()
+            alone.append(ok(*_http(port, "POST", "/predict", bodies[i]), "sequential"))
+            seq_ms.append((time.perf_counter() - t) * 1e3)
+        _, s0 = _http(port, "GET", "/stats")
+        if s0["batch_hist"] != {"1": 32}:
+            raise AssertionError(f"serve: sequential requests not served alone: {s0}")
+        load_ms, lock, errors = [], threading.Lock(), []
+
+        def client(c):
+            for j in range(SERVE_PER_CLIENT):
+                t = time.perf_counter()
+                try:
+                    ok(*_http(port, "POST", "/predict",
+                              bodies[(c * SERVE_PER_CLIENT + j) % SERVE_FRAMES]), "load")
+                except (AssertionError, OSError) as e:
+                    with lock:
+                        errors.append(repr(e))
+                with lock:
+                    load_ms.append((time.perf_counter() - t) * 1e3)
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t
+        if errors or len(load_ms) != SERVE_CLIENTS * SERVE_PER_CLIENT:
+            raise AssertionError(f"serve: {len(errors)} failed requests under load: "
+                                 f"{errors[:3]}")
+        _, s1 = _http(port, "GET", "/stats")
+        hist = {int(b): n - s0["batch_hist"].get(b, 0) for b, n in s1["batch_hist"].items()
+                if n != s0["batch_hist"].get(b, 0)}
+        occupancy = (s1["requests"] - s0["requests"]) / (s1["batches"] - s0["batches"])
+        big = _http(port, "POST", "/predict", encode_png(np.zeros((720, 1280, 3), np.uint8)))
+        jpeg = _http(port, "POST", "/predict", JPEG_BODY)
+        _, s2 = _http(port, "GET", "/stats")
+        _, health = _http(port, "GET", "/healthz")
+    finally:
+        rc = server.stop()
+    log(f"serve: started in {start_s:.1f} s (model, 6 warm-up buckets); 32 sequential "
+        f"requests: p50 {_quantile(seq_ms, 0.5):.2f} ms, p99 {_quantile(seq_ms, 0.99):.2f} ms "
+        f"(client clock, bucket 1; the first {seq_ms[0]:.2f}, the slowest three "
+        f"{', '.join(f'{v:.2f}' for v in sorted(seq_ms)[-3:])}) [{card}]")
+    log(f"serve: {SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} requests: "
+        f"{len(load_ms) / wall:.1f} requests/s; client p50 {_quantile(load_ms, 0.5):.2f} ms, "
+        f"p99 {_quantile(load_ms, 0.99):.2f} ms; batches by bucket {dict(sorted(hist.items()))}, "
+        f"mean occupancy {occupancy:.2f}; /stats latency (last 1024 requests, the sequential "
+        f"ones included) {s1['latency_ms']} [{card}]")
+    want_big = 200 if have_cv2() else 400
+    log(f"serve: 1280x720 PNG -> {big[0]} {str(big[1])[:120]}; JPEG -> {jpeg[0]} "
+        f"{str(jpeg[1])[:120]}; /healthz {health}; SIGTERM -> exit {rc}")
+    if big[0] != want_big or jpeg[0] != 400 or s2["errors"] != 0 \
+            or health != {"ok": True, "backend": "cuda"} or rc != 0:
+        raise AssertionError("serve: wrong status, errors, backend or exit code")
+
+    # -- SIGTERM with requests parked in the batcher
+    server = ServerProcess(["--load", ckpt, "--port", "0", "--buckets", "4",
+                            "--max_delay_ms", "2000", "--no_warmup"])
+    try:
+        parked = []
+        t = threading.Thread(target=lambda: parked.extend(_post_all(server.port, bodies[:3])))
+        t.start()
+        time.sleep(0.5)            # the 3 requests wait in the 2 s window
+        rc = server.stop()
+        t.join(timeout=120)
+    finally:
+        server.stop(signal.SIGKILL)
+    for status, body in parked:
+        ok(status, body, "parked at SIGTERM")
+    log(f"serve: SIGTERM with 3 requests parked: {[s for s, _ in parked]}, exit {rc}")
+    if len(parked) != 3 or rc != 0:
+        raise AssertionError("serve: the drain lost a request or did not exit 0")
+
+    # -- in this process: the kernels the requests launched, bucket 32 vs alone
+    kernels = {"warp_nearest": warp_nearest, "conv3x3": conv3x3, "deconv2x2": deconv2x2,
+               "bn_relu_norm": bn_relu_norm}
+    httpd, batcher = _in_process_server(["--load", ckpt, "--max_delay_ms", "1000"])
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        conv3x3.dual_launches = conv3x3.tc_launches = deconv2x2.tc_launches = 0
+        warp_nearest.vec_launches = 0
+        counted = {}
+        gap, spread, alone_bf16 = _bucket_gap(
+            httpd, batcher, bodies[:32], ok, "bf16",
+            lambda: counted.update(_predict_launches(kernels)))
+        launches = _predict_launches(kernels)
+        device_ms = {}
+        for b in batcher.buckets:
+            x = torch.from_numpy(frames[:b]).to(dev)
+            with torch.inference_mode():
+                device_ms[b] = cuda_ms(lambda: batcher.run_batch(x), warmup=2, runs=7)
+    finally:
+        _close(httpd, batcher)
+    log(f"serve: kernel launches for 32 requests in one bucket-32 batch: {counted}; for 64 "
+        f"requests in 33 batches (the same 32 frames alone after it): {launches}; on the "
+        f"tensor cores: K2 {conv3x3.tc_launches} of {conv3x3.launches}, K3 "
+        f"{deconv2x2.tc_launches} of {deconv2x2.launches}; K1 on the float4 stores: "
+        f"{warp_nearest.vec_launches} of {warp_nearest.launches}")
+    if any(n <= 0 for n in counted.values()) \
+            or any(n != 33 * counted[k] for k, n in launches.items()):
+        raise AssertionError(f"serve: a kernel of the path was never launched, or not the "
+                             f"same number of times each batch: {counted}, {launches}")
+    if conv3x3.tc_launches != conv3x3.launches or deconv2x2.tc_launches != deconv2x2.launches \
+            or warp_nearest.vec_launches != warp_nearest.launches:
+        raise AssertionError("serve: a K2 or K3 launch left the tensor cores, or K1 the "
+                             "float4 route")
+    log(f"serve: bf16 theta of a frame in a bucket-32 batch against the same frame alone: "
+        f"max abs {gap:.3e} over 32 frames (theta spread across frames {spread:.3e}); the "
+        f"program's device time a batch (CUDA events, median of 7): " + ", ".join(
+            f"bucket {b} {ms:.2f} ms ({b * 1000.0 / ms:.0f} frames/s)"
+            for b, ms in device_ms.items()) + f" [{card}]")
+    busy = sum(n * device_ms[b] for b, n in hist.items()) / (wall * 1e3)
+    log(f"serve: under load the program's device time (each bucket's above times its batches) "
+        f"covers {busy * 100:.1f} % of the {wall:.3f} s wall clock; a batch every "
+        f"{wall * 1e3 / sum(hist.values()):.1f} ms on average; {len(load_ms)} requests in "
+        f"{sum(b * n for b, n in hist.items())} bucket slots")
+
+    # -- which part of the path depends on the batch in bf16: the UNet's logits
+    # (K1-K3, K7-fwd; each output summed in a fixed order) or the STN (cuDNN)
+    class Args:
+        target_size = unet_size = warp_size = court_size = (640, 360)
+        mask_classes, use_unet, use_resnet, use_warper, unet_uv = 4, True, True, True, False
+        unet_bilinear, resnet_name, resnet_input = False, "resnet34", "img+mask"
+        compute_dtype, device = "bfloat16", "cuda"
+        court_img, court_poi = COURT_IMG, COURT_POI
+
+    bundle = build_model(Args, load=ckpt, fold_bn=True, warp_with_nearest=True)
+    x = torch.from_numpy(frames[:32]).to(dev).float() / 255.0
+    with torch.inference_mode():
+        p32, p1 = (bundle.model.predict(v, bundle.court_labels, bundle.value_table)
+                   for v in (x, x[:1]))
+    log(f"serve: bf16 frame 0 in a batch of 32 against alone: UNet logits "
+        f"{'equal' if torch.equal(p32['logits'][:1], p1['logits']) else 'differ'} (max abs "
+        f"{(p32['logits'][:1].float() - p1['logits'].float()).abs().max().item():.3e}), theta "
+        f"max abs {(p32['theta'][:1] - p1['theta']).abs().max().item():.3e}")
+    del bundle, x, p32, p1
+
+    # -- f32 (TF32 off): bucket 32 against alone on CUDA, CUDA against --device cpu
+    res = {}
+    for device in ("cuda", "cpu"):
+        httpd, batcher = _in_process_server(
+            ["--load", ckpt, "--device", device, "--compute_dtype", "float32",
+             "--buckets", "1,2,32" if device == "cuda" else "2", "--max_delay_ms", "1000",
+             "--no_warmup"])
+        try:
+            if device == "cuda":
+                gap32, _, alone_f32 = _bucket_gap(httpd, batcher, bodies[:32], ok, "f32")
+            h0 = dict(batcher.batch_hist)
+            res[device] = [ok(*r, f"f32 {device}")
+                           for r in _post_all(httpd.server_address[1], bodies[:2])]
+            if batcher.batch_hist - collections.Counter(h0) != {2: 1}:
+                raise AssertionError(f"serve f32 {device}: 2 concurrent requests were not one "
+                                     "bucket-2 batch")
+        finally:
+            _close(httpd, batcher)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    diff = {k: max(np.abs(np.subtract(a[k], b[k])).max()
+                   for a, b in zip(res["cuda"], res["cpu"])) for k in ("theta", "score", "poi")}
+    log(f"serve f32: theta of a frame in a bucket-32 batch against alone on CUDA: max abs "
+        f"{gap32:.3e} (bound 2e-4); bf16 against f32, each frame alone: max abs "
+        f"{np.abs(alone_bf16 - alone_f32).max():.3e}; CUDA vs CPU, 2 frames in bucket 2: theta max abs {diff['theta']:.3e} "
+        f"(bound 2e-4), score {diff['score']:.3e} (1e-3), poi {diff['poi']:.3e} (5e-4)")
+    if not (diff["theta"] <= 2e-4 and diff["score"] <= 1e-3 and diff["poi"] <= 5e-4):
+        raise AssertionError("serve: f32 CUDA and CPU responses disagree beyond the bounds")
+    if not gap32 <= 2e-4:
+        raise AssertionError("serve: an f32 frame's theta in bucket 32 differs from alone "
+                             "beyond 2e-4")
+
+    # -- the handler's host decode of a 640x360 frame, both decode_png paths
+    sub = [_png_sub_filtered(f) for f in frames[:4]]
+    times = {}
+    for name, raws in (("filter 0 (shortcut)", bodies[:16]), ("Sub (anti-diagonals)", sub)):
+        t = time.perf_counter()
+        out = [decode_png(r) for r in raws]
+        times[name] = (time.perf_counter() - t) * 1e3 / len(raws)
+        if not all(np.array_equal(o, f) for o, f in zip(out, frames)):
+            raise AssertionError(f"serve: decode_png {name} is not the source frame")
+    t = time.perf_counter()
+    for r in bodies[:16]:
+        _decode_frame(r, (360, 640), "bgr")
+    handler_ms = (time.perf_counter() - t) * 1e3 / 16
+    log("serve: host decode of a 640x360 PNG request: decode_png " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in times.items()) + f" a frame; the handler's whole decode "
+        f"(cv2 {'installed' if have_cv2() else 'absent: decode_png'}, filter 0, to BGR) "
+        f"{handler_ms:.2f} ms a frame")
+
+
 KERNEL_TABLE = [   # name, source, the TPU kernel it replaces
     ("warp_nearest", "warp_nearest.cu", "sports_field_homography_tpu/ops/warp_pallas.py:96"),
     ("conv3x3", "conv3x3_sm90.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:151"),
@@ -2368,6 +2788,7 @@ def main() -> int:
     run("test CLI", phase_test_cli, dev, card, work, cp_dir, data)
     run("train example conf", phase_train_example, dev, card, work)
     run("predict resnet50", phase_predict_resnet50, dev, card)
+    run("serve", phase_serve, dev, card, work)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")
 

@@ -12,6 +12,8 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..compat.flax_msgpack import load_msgpack
+from ..compat.jax_params import state_dict_from_jax
 from ..data.assets import open_court_template
 from ..geometry.court import load_court_poi
 from ..models import Reconstructor, ReconstructorConfig
@@ -20,8 +22,8 @@ from ..ops.fold_bn import fold_batchnorm
 from ..ops.warp import template_value_table
 from ..utils.config import resolve_asset
 
-__all__ = ["ModelBundle", "build_model", "check_loadable", "predict_fn", "discover_conf",
-           "dtype_from_str"]
+__all__ = ["ModelBundle", "build_model", "check_loadable", "load_state_dict", "predict_fn",
+           "discover_conf", "dtype_from_str"]
 
 
 def dtype_from_str(name: str) -> torch.dtype:
@@ -40,12 +42,22 @@ class ModelBundle:
 
 
 def check_loadable(load: Optional[str]) -> None:
-    """Refuse weights other than a reference-keyed ``.pth``."""
-    if load is not None and not load.endswith(".pth"):
+    """Refuse weights other than a reference-keyed ``.pth`` or the JAX
+    package's ``.msgpack``."""
+    if load is not None and not load.endswith((".pth", ".msgpack")):
         raise NotImplementedError(
-            f"{load}: only reference-keyed .pth checkpoints load so far; "
-            ".msgpack/orbax import is ROADMAP.md queue 1 step 6 (export one "
-            "with the JAX package's save_torch_checkpoint)")
+            f"{load}: only reference-keyed .pth and the JAX package's .msgpack "
+            "checkpoints load; convert an orbax directory with the JAX package's "
+            "scripts/export_torch_checkpoint.py")
+
+
+def load_state_dict(load: str) -> Dict[str, torch.Tensor]:
+    """The reference-keyed ``state_dict`` of a ``.pth``, or of a ``.msgpack``
+    that the JAX package wrote (its ``{"params", "batch_stats"}`` tree)."""
+    check_loadable(load)
+    if load.endswith(".msgpack"):
+        return state_dict_from_jax(load_msgpack(load))
+    return torch.load(load, map_location="cpu", weights_only=True)
 
 
 def build_model(args, load: Optional[str] = None, seed: int = 0,
@@ -53,8 +65,9 @@ def build_model(args, load: Optional[str] = None, seed: int = 0,
     """Construct the Reconstructor and court constants from parsed args.
 
     ``load``: a reference-keyed ``.pth`` state_dict (the JAX package's
-    ``save_torch_checkpoint`` writes these), loaded with ``strict=True``;
-    None initialises from ``seed`` with a ``torch.Generator``.
+    ``save_torch_checkpoint`` writes these) or a JAX ``.msgpack``
+    (``load_state_dict``), loaded with ``strict=True``; None initialises
+    from ``seed`` with a ``torch.Generator``.
     ``warp_with_nearest``: the forward warps with K1 (the test CLI).
     """
     device = torch.device(getattr(args, "device", "cuda"))
@@ -75,8 +88,7 @@ def build_model(args, load: Optional[str] = None, seed: int = 0,
     if load is None:
         init_weights(model, torch.Generator().manual_seed(seed))
     else:
-        state = torch.load(load, map_location="cpu", weights_only=True)
-        model.load_state_dict(state, strict=True)
+        model.load_state_dict(load_state_dict(load), strict=True)
     if fold_bn:
         fold_batchnorm(model)
     model = model.to(device).eval()

@@ -4,7 +4,8 @@
         --cp_dir run/ --test_epochs 1,2,5 --img_dir frames/ \\
         --mask_dir masks/ --anno_dir anno/
 
-For each epoch it loads ``CP_epoch{n}.pth`` from ``cp_dir`` and the
+For each epoch it loads ``CP_epoch{n}.msgpack`` (the JAX package's) or
+``CP_epoch{n}.pth`` from ``cp_dir``, the first it finds, and the
 ``conf.yaml`` beside it (the train CLI writes both; without PyYAML the conf
 must be JSON, which the train CLI's JSON confs are), scores the model on
 every game sub-directory of ``img_dir`` with the nearest warp (K1 on the
@@ -13,8 +14,8 @@ full ``warp_size`` grid), unweighted means and reprojection in pixels at
 milliseconds to ``test_scores.txt`` beside the checkpoint, in the JAX
 CLI's format (the input of ``utils/viz_metrics.py``).  ``--device cpu``
 runs the kernels' plain versions; ``--compute_dtype float32`` turns TF32
-off.  ``.msgpack`` / ``.orbax`` checkpoints are refused with the ROADMAP
-step that brings them.
+off.  ``.orbax`` directories are refused: convert them with the JAX
+package's ``scripts/export_torch_checkpoint.py``.
 """
 from __future__ import annotations
 

@@ -21,9 +21,11 @@ JAX package's masked step computes on a padded tail.  SIGTERM or SIGINT
 sets a flag; the loop then saves ``last.pth``, ``last_state.pth`` and
 ``last_state.sched.json`` at the next point between steps and exits 0 (a
 second signal exits at once, without a save); ``--resume`` continues from
-them exactly where the run stopped.  Refused up front: multi-device
-training (ROADMAP.md queue 1 step 7), ``.msgpack`` weights (step 6), the
-torchvision warm start by variant name or URL (it needs a download),
+them exactly where the run stopped.  ``--load`` takes a ``.pth`` or the JAX
+package's ``.msgpack``.  Refused up front: multi-device training (ROADMAP.md
+queue 1 step 7), orbax directories (convert them with the JAX package's
+``scripts/export_torch_checkpoint.py``), the torchvision warm start by
+variant name or URL (it needs a download),
 ``scale`` augmentation without Pillow and UV masks without cv2.
 """
 from __future__ import annotations

@@ -20,6 +20,14 @@ import torch
 __all__ = ["state_dict_from_jax"]
 
 
+def _leaf(x) -> np.ndarray:
+    """A leaf as numpy; a bfloat16 tensor (``compat/flax_msgpack``) exactly,
+    as float32."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x)
+
+
 def _get(tree, path):
     node = tree
     for p in path:
@@ -33,9 +41,9 @@ def _conv(out, variables, path, name):
     p = _get(variables, ("params",) + path)
     if p is None or "kernel" not in p:
         return
-    out[name + ".weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+    out[name + ".weight"] = _leaf(p["kernel"]).transpose(3, 2, 0, 1)
     if "bias" in p:
-        out[name + ".bias"] = np.asarray(p["bias"])
+        out[name + ".bias"] = _leaf(p["bias"])
 
 
 def _bn(out, variables, path, name):
@@ -43,11 +51,11 @@ def _bn(out, variables, path, name):
     s = _get(variables, ("batch_stats",) + path)
     if p is None:
         return
-    out[name + ".weight"] = np.asarray(p["scale"])
-    out[name + ".bias"] = np.asarray(p["bias"])
+    out[name + ".weight"] = _leaf(p["scale"])
+    out[name + ".bias"] = _leaf(p["bias"])
     if s is not None:
-        out[name + ".running_mean"] = np.asarray(s["mean"])
-        out[name + ".running_var"] = np.asarray(s["var"])
+        out[name + ".running_mean"] = _leaf(s["mean"])
+        out[name + ".running_var"] = _leaf(s["var"])
         out[name + ".num_batches_tracked"] = np.zeros((), np.int64)
 
 
@@ -71,8 +79,8 @@ def _arrays(variables: Dict) -> Dict[str, np.ndarray]:
         for i in range(1, 5):
             up = _get(variables, ("params",) + u + (f"up{i}", "up"))
             if up is not None:
-                out[f"up{i}.up.weight"] = np.asarray(up["kernel"]).transpose(0, 3, 1, 2)
-                out[f"up{i}.up.bias"] = np.asarray(up["bias"])
+                out[f"up{i}.up.weight"] = _leaf(up["kernel"]).transpose(0, 3, 1, 2)
+                out[f"up{i}.up.bias"] = _leaf(up["bias"])
             _double_conv(out, variables, u + (f"up{i}", "conv"),
                          f"up{i}.conv.double_conv")
         _conv(out, variables, u + ("outc", "conv"), "outc.conv")
@@ -93,8 +101,8 @@ def _arrays(variables: Dict) -> Dict[str, np.ndarray]:
             _bn(out, variables, r + (fname, "downsample_bn"), f"{tname}.downsample.1")
         reg = _get(variables, ("params",) + r + ("reg",))
         if reg is not None:
-            out["resnet_reg.reg.weight"] = np.asarray(reg["kernel"]).T
-            out["resnet_reg.reg.bias"] = np.asarray(reg["bias"])
+            out["resnet_reg.reg.weight"] = _leaf(reg["kernel"]).T
+            out["resnet_reg.reg.bias"] = _leaf(reg["bias"])
     return out
 
 

@@ -11,7 +11,8 @@ neighbours (Sub, Up, Average, Paeth), so a row cannot be undone in one
 vectorised step.  Every one of those neighbours lies on an earlier
 anti-diagonal (row + column) of the pixel grid, though, so the image is
 unfiltered one anti-diagonal at a time: H + W - 1 numpy steps, each over
-all the pixels of its diagonal, whatever filter each row uses.
+all the pixels of its diagonal, whatever filter each row uses.  An image
+whose rows all use filter 0 (None) needs no unfiltering and skips that loop.
 """
 from __future__ import annotations
 
@@ -82,7 +83,10 @@ def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     c = _CHANNELS[color]
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     rows = rows[:h * (w * c + 1)].reshape(h, w * c + 1)
-    img = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, c))
+    if rows[:, 0].any():
+        img = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, c))
+    else:   # every row filter 0 (None), as encode_png writes: the bytes are the pixels
+        img = np.array(rows[:, 1:].reshape(h, w, c))
     return img[..., 0] if c == 1 else img
 
 

@@ -1,5 +1,5 @@
 """Argparse + YAML-overlay configuration (port of ``utils/config.py``:
-the prediction, training and checkpoint-test arguments).
+the prediction, training, checkpoint-test and serving arguments).
 
 Same flag names and defaults as the JAX package, and the same overlay:
 a ``conf.yaml`` beside the checkpoint replaces parsed values key by key
@@ -14,7 +14,7 @@ import json
 import os
 
 __all__ = ["parse_config", "get_prediction_args", "get_training_args",
-           "get_test_args", "replace_args", "resolve_asset"]
+           "get_test_args", "get_serving_args", "replace_args", "resolve_asset"]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -65,7 +65,8 @@ def parse_config(path_to_yaml: str):
 def _base_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Reconstructor (PyTorch)")
     parser.add_argument("--load", dest="load", type=str, default=None,
-                        help="Load model from a reference-keyed .pth state_dict")
+                        help="Load model from a reference-keyed .pth state_dict "
+                             "or the JAX package's .msgpack")
     parser.add_argument("--conf_path", "-c", dest="conf_path", type=str,
                         default=None, help="Load config from a .yaml file")
     parser.add_argument("--batchsize", "-bs", dest="batchsize", type=int,
@@ -204,6 +205,41 @@ def get_test_args(argv=None):
                         help="List of epochs to test, e.g. 1,2,5")
     parser.add_argument("--metric_img_size", "-mis", dest="metric_img_size",
                         default=(640, 360), help="Metric image size")
+    parser.add_argument("--fold_bn", type=int, default=1,
+                        help="Fold BatchNorm into conv weights at load "
+                             "(inference-only; 0 disables)")
+    return parser.parse_args(argv)
+
+
+def get_serving_args(argv=None):
+    """Online-serving arguments (the JAX package's ``get_serving_args``):
+    the base parser's model, geometry and device flags plus these."""
+    parser = _base_parser()
+    parser.description = "Serve"
+    parser.add_argument("--http_host", type=str, default="127.0.0.1",
+                        help="Bind address (0.0.0.0 to expose)")
+    parser.add_argument("--port", type=int, default=8800,
+                        help="HTTP port (0 = ephemeral, printed at start)")
+    parser.add_argument("--req_outputs", type=str, default="theta,poi,consistency",
+                        help="Outputs computed per request (same names as "
+                             "predict; segm_mask/warp_mask return base64 PNGs)")
+    parser.add_argument("--max_batch", type=int, default=32,
+                        help="Dynamic batcher cap (the throughput bucket)")
+    parser.add_argument("--max_delay_ms", type=float, default=8.0,
+                        help="Max coalescing wait after the first queued "
+                             "request before dispatch")
+    parser.add_argument("--buckets", type=str, default=None,
+                        help="Comma list of batch sizes (default: powers of 2 "
+                             "up to max_batch)")
+    parser.add_argument("--channel_order", type=str, default="bgr",
+                        choices=("bgr", "rgb"),
+                        help="Channel order frames are fed to the model in "
+                             "(bgr = the video source's)")
+    parser.add_argument("--serving_artifact", type=str, default=None,
+                        help="Accepted so the JAX command lines parse; refused "
+                             "(ROADMAP.md queue 1 item 12)")
+    parser.add_argument("--no_warmup", action="store_true",
+                        help="Skip running every batch bucket at startup")
     parser.add_argument("--fold_bn", type=int, default=1,
                         help="Fold BatchNorm into conv weights at load "
                              "(inference-only; 0 disables)")

@@ -289,11 +289,17 @@ def test_test_cli_matches_jax(tmp_path):
 
 
 def test_test_cli_refuses_msgpack(tmp_path):
+    """The test CLI reads a .msgpack itself now: one that is not flax's
+    msgpack is refused by the reader, and an orbax directory is refused
+    with the script that converts it."""
     from sports_field_homography_tpu_torch.cli import test as test_cli
 
     (tmp_path / "CP_epoch2.msgpack").write_bytes(b"")
+    (tmp_path / "CP_epoch3.orbax").mkdir()
     (tmp_path / "conf.yaml").write_text(json.dumps({"resnet_name": "resnet18"}))
-    with pytest.raises(NotImplementedError, match="queue 1 step 6"):
-        test_cli.main(["--cp_dir", str(tmp_path), "--test_epochs", "2", "--img_dir",
-                       str(tmp_path), "--device", "cpu", "--court_img", COURT,
-                       "--court_poi", POI])
+    argv = ["--cp_dir", str(tmp_path), "--img_dir", str(tmp_path), "--device", "cpu",
+            "--court_img", COURT, "--court_poi", POI]
+    with pytest.raises(ValueError, match="msgpack: truncated"):
+        test_cli.main(argv + ["--test_epochs", "2"])
+    with pytest.raises(NotImplementedError, match="export_torch_checkpoint"):
+        test_cli.main(argv + ["--test_epochs", "3"])

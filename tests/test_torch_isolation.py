@@ -33,8 +33,8 @@ def test_port_imports_no_jax():
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert len(names) >= 26, names
-        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+        assert len(names) >= 51, names
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "msgpack")
                      or m.startswith("sports_field_homography_tpu."))
         assert not bad, bad
         print("ok", len(names))
@@ -178,9 +178,10 @@ def test_wrappers_refuse_other_devices():
                   torch.rand(4))
 
 
-def _write_png_all_filters(path, img):
-    """Encode an (H, W, 3) uint8 image with row filter r % 5 (None, Sub,
-    Up, Average, Paeth), per the PNG specification."""
+def png_with_filters(img, ftypes):
+    """(H, W, 3) uint8 as an RGB PNG's bytes, row r with filter
+    ``ftypes[r]`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), per the PNG
+    specification."""
     import struct
     import zlib
 
@@ -193,20 +194,24 @@ def _write_png_all_filters(path, img):
     pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
     paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
     preds = [np.zeros_like(x), left, up, (left + up) // 2, paeth]
-    rows = []
-    for r in range(h):
-        t = r % 5
-        rows.append(np.concatenate([[t], (x[r] - preds[t][r]) & 0xFF]).astype(np.uint8))
+    rows = [np.concatenate([[t], (x[r] - preds[t][r]) & 0xFF]).astype(np.uint8)
+            for r, t in enumerate(ftypes)]
 
     def chunk(kind, data):
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
+    return b"".join([b"\x89PNG\r\n\x1a\n",
+                     chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)),
+                     chunk(b"IDAT", zlib.compress(np.stack(rows).tobytes())),
+                     chunk(b"IEND", b"")])
+
+
+def _write_png_all_filters(path, img):
+    """Encode an (H, W, 3) uint8 image with row filter r % 5 (None, Sub,
+    Up, Average, Paeth)."""
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(np.stack(rows).tobytes())))
-        f.write(chunk(b"IEND", b""))
+        f.write(png_with_filters(img, [r % 5 for r in range(img.shape[0])]))
 
 
 def test_png_reader_every_filter_type(tmp_path):

@@ -125,7 +125,16 @@ def test_port_cli_names_unported_flags(workspace, tmp_path, extra, match):
 
 
 def test_port_cli_rejects_msgpack(workspace, tmp_path):
+    """The port reads the JAX package's .msgpack itself now
+    (``tests/test_torch_flax_msgpack.py``): a torn one is rejected by the
+    reader, and an orbax directory with the script that converts it."""
     root, img_dir, cp_dir = workspace
-    argv = _argv(img_dir, cp_dir / "CP_epoch1.msgpack", tmp_path) + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    torn = tmp_path / "ckpt" / "CP_epoch1.msgpack"
+    torn.parent.mkdir()
+    torn.write_bytes((cp_dir / "CP_epoch1.msgpack").read_bytes()[:-100])
+    argv = _argv(img_dir, torn, tmp_path / "out") + ["--device", "cpu"]
+    with pytest.raises(ValueError, match="msgpack: truncated"):
+        port_process(argv)
+    argv = _argv(img_dir, cp_dir / "CP_epoch1.orbax", tmp_path / "out") + ["--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="export_torch_checkpoint"):
         port_process(argv)

@@ -393,7 +393,7 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
             str(tmp_path), "--device", "cpu"]
     for extra, match in ((["--num_devices", "2"], "step 7"),
                          (["--num_hosts", "2"], "step 7"),
-                         (["--load", "CP_epoch1.msgpack"], "step 6"),
+                         (["--load", "CP_epoch1.orbax"], "export_torch_checkpoint"),
                          (["--resnet_pretrained", "resnet34"], "download")):
         with pytest.raises(NotImplementedError, match=match):
             train_cli.main(base + extra)
