@@ -153,6 +153,25 @@ its seconds:
    against ``--device cpu`` on 2 frames (theta <= 2e-4, score <= 1e-3, poi
    <= 5e-4); the host decode ms of a frame on both ``decode_png`` paths
    (filter 0 and Sub).
+13. serve artifact: phase 12's model exported on the card with
+   ``python -m sports_field_homography_tpu_torch.cli.export_serving
+   --buckets 1,2,4,8,16,32`` (``torch.export`` programs with the weights
+   inside, bf16 where the program casts them to bf16 at every use), each
+   bucket's program loaded alone and held to the live ``predict_fn`` bit
+   for bit on the same frames, with K2 17 (4 two-input), K3 4, K7-fwd's
+   norm 9 and K1 1 launches a batch on the tensor-core and float4 routes
+   (export seconds, MB, load seconds, device ms beside the live program's);
+   then ``serve.server --serving_artifact`` in a child process under phase
+   12's load (start seconds, requests/s, p50/p99, SIGTERM exit 0), in this
+   process the same launches through the batcher (33 batches), the bf16
+   STN replayed alone at buckets 32 and 1 (the ResNet trunk's features,
+   then the linear head on the same features), and an f32 artifact
+   exported on the card against one exported on the CPU (theta <= 2e-4,
+   score <= 1e-3, poi <= 5e-4).  Phase 3 also times the host cost of one K1
+   and one K2 call at bucket 1's shapes through each binding: the bare
+   ctypes launch, the ``Library.define`` operator the port uses, a
+   ``torch.library.custom_op`` of the same implementation, and the public
+   wrapper.
 
 The last two lines are JSON: the kernel table (each kernel's launches in
 the deconv predict run, K1's in the png full-output run, whose full grid
@@ -163,6 +182,7 @@ train step's f32 parity runs; its error, times and bound),
 then ``{"ok": true, "device": {...}}``.
 """
 import collections
+import gc
 import json
 import os
 import re
@@ -173,6 +193,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -483,7 +504,94 @@ def phase_kernels(dev, card):
         f"ms, library {lib32:.3f} ms; bound {bnd[0]:.3f} ms ({bnd[1]}); bf16 max abs err "
         f"{errb:.2e} [{card}]")
     results["deconv2x2_f32"] = entry(err32, ms32, pms32, lib32, bnd)
+    binding_host_cost(dev, card)
     return results
+
+
+def _host_us(fns, n: int = 300) -> dict:
+    """Median host microseconds of one call of each of ``fns`` (name ->
+    callable): the launch alone (the clock stops before the device is
+    waited on), the stream drained between calls so that no call waits on
+    a full launch queue, the callables taken in turns so that a drift of
+    the host's clock speed falls on all of them alike."""
+    import torch
+
+    for f in fns.values():
+        for _ in range(20):
+            f()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(n):
+        for k, f in fns.items():
+            t0 = time.perf_counter()
+            f()
+            times[k].append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+    return {k: statistics.median(v) * 1e6 for k, v in times.items()}
+
+
+def binding_host_cost(dev, card):
+    """The host cost of one kernel call through each binding, for K1 and K2
+    at bucket 1's shapes (one 640x360 frame): the bare ctypes launch (the
+    operator's CUDA implementation called as a function), the operator as
+    ``ops/library.py`` binds it (``Library.define`` + ``impl``), the same
+    implementation bound with ``torch.library.custom_op``, and the public
+    wrapper that the model calls (device checks, the weight cast, the
+    operator).  Each binding's output must equal the bare call's."""
+    import torch
+
+    from sports_field_homography_tpu_torch.data.assets import open_court_template
+    from sports_field_homography_tpu_torch.ops import conv3x3 as k2
+    from sports_field_homography_tpu_torch.ops import warp as k1
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    labels_np = open_court_template(COURT_IMG, 4, size=(640, 360))
+    labels = torch.from_numpy(labels_np).to(dev)
+    values = k1.template_value_table(labels_np, 4).to(dev)
+    theta = torch.eye(3, device=dev)[None] + 0.01 * torch.randn((1, 3, 3), generator=gen,
+                                                                 device=dev)
+    x = torch.randn((1, 360, 640, 64), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((3, 3, 64, 64), generator=gen, device=dev) / 24.0).bfloat16()
+    b = torch.randn((64,), generator=gen, device=dev) * 0.1
+    Tensor = torch.Tensor
+
+    @torch.library.custom_op("sfh_probe::warp_nearest", mutates_args=(), device_types="cuda")
+    def warp_probe(template_labels: Tensor, theta: Tensor, values: Tensor,
+                   out_hw: list[int]) -> Tensor:
+        return k1._warp_cuda(template_labels, theta, values, out_hw, None)
+
+    @torch.library.custom_op("sfh_probe::conv3x3", mutates_args=(), device_types="cuda")
+    def conv_probe(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
+        return k2._conv3x3_cuda(x, w, bias, None, None, None, None, None)
+
+    cases = {
+        "K1 warp_nearest (1, 360, 640)": (
+            lambda: k1._warp_cuda(labels, theta, values, [360, 640], None),
+            lambda: torch.ops.sfh.warp_nearest.default(labels, theta, values, [360, 640], None),
+            lambda: warp_probe(labels, theta, values, [360, 640]),
+            lambda: k1.warp_nearest(labels, theta, (360, 640), values)),
+        "K2 conv3x3 64->64 (1, 360, 640) bf16": (
+            lambda: k2._conv3x3_cuda(x, w, b, None, None, None, None, None),
+            lambda: torch.ops.sfh.conv3x3.default(x, w, b, None, None, None, None, None),
+            lambda: conv_probe(x, w, b),
+            lambda: k2.conv3x3(x, w, b)),
+    }
+    out = {}
+    for name, (bare, op, probe, wrapper) in cases.items():
+        ref = bare()
+        for f in (op, probe, wrapper):
+            if not torch.equal(f(), ref):
+                raise AssertionError(f"binding host cost {name}: a binding's output differs")
+        us = _host_us({"ctypes": bare, "Library.define": op, "custom_op": probe,
+                       "wrapper": wrapper})
+        out[name] = us
+        log(f"host cost of one call, {name}: bare ctypes launch {us['ctypes']:.1f} us, "
+            f"Library.define/impl operator {us['Library.define']:.1f} us (+"
+            f"{us['Library.define'] - us['ctypes']:.1f}), torch.library.custom_op "
+            f"{us['custom_op']:.1f} us (+{us['custom_op'] - us['ctypes']:.1f}), the public "
+            f"wrapper (checks, cast, operator) {us['wrapper']:.1f} us; median of 300 in "
+            f"turns, the stream drained between calls [{card}]")
+    return out
 
 
 class recording_k1_grids:
@@ -2693,7 +2801,8 @@ def phase_serve(dev, card, work):
                                      "bucket-2 batch")
         finally:
             _close(httpd, batcher)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True      # the bf16 CLI's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
     diff = {k: max(np.abs(np.subtract(a[k], b[k])).max()
                    for a, b in zip(res["cuda"], res["cpu"])) for k in ("theta", "score", "poi")}
     log(f"serve f32: theta of a frame in a bucket-32 batch against alone on CUDA: max abs "
@@ -2723,6 +2832,288 @@ def phase_serve(dev, card, work):
         f"{k} {v:.2f} ms" for k, v in times.items()) + f" a frame; the handler's whole decode "
         f"(cv2 {'installed' if have_cv2() else 'absent: decode_png'}, filter 0, to BGR) "
         f"{handler_ms:.2f} ms a frame")
+
+
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVE_HW = (360, 640)
+# the predict path's launches a batch (K2 of which two-input, K3, K7-fwd's
+# norm, K1), the same at every bucket
+PATH_LAUNCHES = {"conv3x3": 13, "conv3x3_dual": 4, "deconv2x2": 4, "bn_relu_norm": 9,
+                 "warp_nearest": 1}
+
+
+def _serve_conf(d):
+    """phase serve's model: the seeded flagship .pth and its JSON conf.yaml
+    (at ``SERVE_HW``)."""
+    write_seeded_model(os.path.join(d, "model.pth"))
+    size = list(SERVE_HW[::-1])
+    with open(os.path.join(d, "conf.yaml"), "w") as f:      # JSON: no PyYAML here
+        json.dump({"target_size": size, "unet_size": size, "warp_size": size,
+                   "court_size": size, "mask_classes": 4,
+                   "resnet_name": "resnet34", "resnet_input": "img+mask",
+                   "court_img": COURT_IMG, "court_poi": COURT_POI}, f)
+    return os.path.join(d, "model.pth")
+
+
+def _counted(kernels, call):
+    """``call()``'s launches of the predict path's kernels, counted from 0,
+    every K2 and K3 launch on the tensor cores and every K1 launch on the
+    float4 stores; returns (launches, what call returned)."""
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2
+    from sports_field_homography_tpu_torch.ops.warp import warp_nearest
+
+    for fn in kernels.values():
+        fn.launches = 0
+    conv3x3.dual_launches = conv3x3.tc_launches = deconv2x2.tc_launches = 0
+    warp_nearest.vec_launches = 0
+    out = call()
+    if conv3x3.tc_launches != conv3x3.launches or deconv2x2.tc_launches != deconv2x2.launches \
+            or warp_nearest.vec_launches != warp_nearest.launches:
+        raise AssertionError("serve artifact: a K2 or K3 launch left the tensor cores, or K1 "
+                             "the float4 route")
+    return _predict_launches(kernels), out
+
+
+def _output_gap(got, want):
+    """{output: max abs difference} of two output dicts, on the host."""
+    return {k: float((got[k].double() - want[k].double()).abs().max()) for k in want}
+
+
+def phase_serve_artifact(dev, card, work):
+    """The serving artifact at the flagship's full width: phase serve's
+    model exported on the card with ``cli.export_serving --buckets
+    1,2,4,8,16,32`` (bf16, BN folded, theta + poi + consistency, 640x360),
+    then served by ``python -m ...serve.server --serving_artifact`` in a
+    child process under phase serve's load.  Gates: every bucket's program
+    equal to the live ``predict_fn`` bit for bit on the same frames, with
+    the path's launches a batch (K2 17, 4 of them two-input, K3 4, K7-fwd's
+    norm 9, K1 1) on the tensor-core and float4 routes; the same launches
+    through the server in this process; an f32 artifact exported on the
+    card against one exported on the CPU (theta 2e-4, score 1e-3, poi
+    5e-4); all requests answered, SIGTERM exit 0.  Prints each bucket's
+    export seconds and MB, load seconds and device ms (beside the live
+    program's), the server's start, requests/s and p50/p99; and the bf16
+    batch dependence of the STN (ResNet trunk, then its linear head) replayed
+    alone at buckets 1 and 32."""
+    import torch
+    import torch.nn.functional as F
+
+    from sports_field_homography_tpu_torch.cli import export_serving
+    from sports_field_homography_tpu_torch.cli.engine import predict_fn
+    from sports_field_homography_tpu_torch.compat.serving import load_serving
+    from sports_field_homography_tpu_torch.data.png import encode_png
+    from sports_field_homography_tpu_torch.models.layers import bn_apply, nchw
+    from sports_field_homography_tpu_torch.models.resnet import _conv
+    from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_norm
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2
+    from sports_field_homography_tpu_torch.ops.warp import warp_nearest
+    from sports_field_homography_tpu_torch.utils.config import get_prediction_args
+
+    h, w = SERVE_HW
+    d = os.path.join(work, "serve_artifact")
+    ckpt = _serve_conf(d)
+    argv = ["--load", ckpt, "--req_outputs", "theta,poi,consistency", "--out_size", str(w),
+            str(h), "--court_img", COURT_IMG, "--court_poi", COURT_POI]
+    art = os.path.join(d, "serving")
+    records = export_serving.main(argv + ["--buckets", ",".join(map(str, SERVE_BUCKETS)),
+                                          "--dst", art, "--device", dev.type])
+    log("serve artifact: exported on the card, " + ", ".join(
+        f"bucket {r['batch']} {r['seconds']:.1f} s {r['mb']:.1f} MB" for r in records)
+        + f" [{card}]")
+    bundle, consistency, _, keep = export_serving.build_bundle(
+        get_prediction_args(argv + ["--device", dev.type]))
+    live = predict_fn(bundle, consistency, keep)
+    frames = np.random.default_rng(3).integers(0, 256, (SERVE_FRAMES, h, w, 3),
+                                               dtype=np.uint8)
+    kernels = {"warp_nearest": warp_nearest, "conv3x3": conv3x3, "deconv2x2": deconv2x2,
+               "bn_relu_norm": bn_relu_norm}
+    fns, rows = {}, []
+    for b in SERVE_BUCKETS:
+        t0 = time.perf_counter()
+        fn, meta = load_serving(os.path.join(art, f"b{b}"), dev.type)
+        load_s = time.perf_counter() - t0
+        fns[b] = fn
+        x = torch.from_numpy(frames[:b]).to(dev)
+        with torch.inference_mode():
+            launches, got = _counted(kernels, lambda: fn(x))
+            want = live(x)
+            torch.cuda.synchronize()
+            gap = _output_gap(got, want)
+            equal = all(torch.equal(got[k], want[k]) for k in want)
+            ms, live_ms = cuda_ms(lambda: fn(x)), cuda_ms(lambda: live(x))
+        rows.append(f"bucket {b}: load {load_s:.2f} s, {'bit-equal' if equal else gap}, "
+                    f"device {ms:.2f} ms (live {live_ms:.2f} ms), launches {launches}")
+        if sorted(got) != meta["outputs"] or launches != PATH_LAUNCHES:
+            raise AssertionError(f"serve artifact bucket {b}: outputs {sorted(got)} or "
+                                 f"launches {launches}, expected {PATH_LAUNCHES}")
+        if not equal:
+            raise AssertionError(f"serve artifact bucket {b}: not bit-equal to the live "
+                                 f"program: max abs {gap}")
+    log("serve artifact: " + "; ".join(rows) + f" [{card}]")
+    del fns
+
+    # -- the entry point in a child process, with phase serve's clients here
+    bodies = [encode_png(f) for f in frames]
+
+    def ok(status, body, what):
+        if status != 200 or np.asarray(body["theta"]).shape != (3, 3) \
+                or not np.isfinite(body["theta"]).all() or not np.isfinite(body["score"]) \
+                or not np.isfinite(body["poi"]).all():
+            raise AssertionError(f"serve artifact: {what}: {status} {str(body)[:300]}")
+        return body
+
+    t0 = time.perf_counter()
+    server = ServerProcess(["--serving_artifact", art, "--port", "0", "--device", dev.type])
+    start_s = time.perf_counter() - t0
+    try:
+        port = server.port
+        seq_ms = []
+        for i in range(32):
+            t = time.perf_counter()
+            ok(*_http(port, "POST", "/predict", bodies[i]), "sequential")
+            seq_ms.append((time.perf_counter() - t) * 1e3)
+        _, s0 = _http(port, "GET", "/stats")
+        load_ms, lock, errors = [], threading.Lock(), []
+
+        def client(c):
+            for j in range(SERVE_PER_CLIENT):
+                t = time.perf_counter()
+                try:
+                    ok(*_http(port, "POST", "/predict",
+                              bodies[(c * SERVE_PER_CLIENT + j) % SERVE_FRAMES]), "load")
+                except (AssertionError, OSError) as e:
+                    with lock:
+                        errors.append(repr(e))
+                with lock:
+                    load_ms.append((time.perf_counter() - t) * 1e3)
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t
+        _, s1 = _http(port, "GET", "/stats")
+        _, health = _http(port, "GET", "/healthz")
+    finally:
+        rc = server.stop()
+    started = [line.strip() for line in server.lines if "bucket artifacts" in line]
+    hist = {int(b): n - s0["batch_hist"].get(b, 0) for b, n in s1["batch_hist"].items()
+            if n != s0["batch_hist"].get(b, 0)}
+    occupancy = (s1["requests"] - s0["requests"]) / max(1, s1["batches"] - s0["batches"])
+    log(f"serve artifact: server started in {start_s:.1f} s ({started}; 6 programs loaded and "
+        f"warmed; phase serve's checkpoint start above); 32 sequential requests: p50 "
+        f"{_quantile(seq_ms, 0.5):.2f} ms, p99 {_quantile(seq_ms, 0.99):.2f} ms; "
+        f"{SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} requests: "
+        f"{len(load_ms) / wall:.1f} requests/s, client p50 {_quantile(load_ms, 0.5):.2f} ms, "
+        f"p99 {_quantile(load_ms, 0.99):.2f} ms; batches by bucket "
+        f"{dict(sorted(hist.items()))}, mean occupancy {occupancy:.2f}; /stats latency of the "
+        f"sequential ones {s0['latency_ms']}; SIGTERM -> exit {rc} [{card}]")
+    if errors or len(load_ms) != SERVE_CLIENTS * SERVE_PER_CLIENT or s1["errors"] != 0 \
+            or s0["batch_hist"] != {"1": 32} or health != {"ok": True, "backend": dev.type} \
+            or rc != 0:
+        raise AssertionError(f"serve artifact: {len(errors)} failed requests {errors[:3]}, "
+                             f"errors, a sequential request not served alone, the backend "
+                             f"or the exit code: {s0}, {s1}, {health}, {rc}")
+
+    # -- the server in this process: the artifact's launches through the batcher,
+    # each batch's host seconds in the worker (H2D, program, D2H), and the
+    # interpreter's garbage collections meanwhile
+    httpd, batcher = _in_process_server(["--serving_artifact", art, "--max_delay_ms", "1000",
+                                         "--no_warmup", "--device", dev.type])
+    batch_ms, gcs = [], []
+    run = batcher._run
+
+    def timed_run(host):
+        t = time.perf_counter()
+        try:
+            return run(host)
+        finally:
+            batch_ms.append((host.shape[0], (time.perf_counter() - t) * 1e3))
+
+    def on_gc(phase, info):
+        if phase == "start":
+            on_gc.t = time.perf_counter()
+        else:
+            gcs.append((info["generation"], (time.perf_counter() - on_gc.t) * 1e3))
+
+    batcher._run = timed_run
+    gc.callbacks.append(on_gc)
+    try:
+        launches, (gap, spread, _) = _counted(
+            kernels, lambda: _bucket_gap(httpd, batcher, bodies[:32], ok, "artifact"))
+    finally:
+        gc.callbacks.remove(on_gc)
+        _close(httpd, batcher)
+    alone_ms = [ms for b, ms in batch_ms if b == 1]
+    full = [ms for g, ms in gcs if g == 2]
+    log(f"serve artifact: kernel launches through the server for 32 requests in one bucket-32 "
+        f"batch and the same frames alone (33 batches): {launches}; bf16 theta of a frame in "
+        f"bucket 32 against alone {gap:.3e} (spread across frames {spread:.3e}); the worker's "
+        f"host ms a batch: bucket 32 {[round(ms, 1) for b, ms in batch_ms if b == 32]}, bucket "
+        f"1 median {statistics.median(alone_ms):.1f} (max {max(alone_ms):.1f}); garbage "
+        f"collections meanwhile {len(gcs)}, of them {len(full)} full ones taking "
+        f"{sum(full):.1f} ms [{card}]")
+    if launches != {k: 33 * n for k, n in PATH_LAUNCHES.items()}:
+        raise AssertionError(f"serve artifact: the server's launches {launches}, expected 33 "
+                             f"batches of {PATH_LAUNCHES}")
+
+    # -- which layer of the STN depends on the batch in bf16: replayed alone
+    model = bundle.model
+    stn = model.resnet_reg
+    x = torch.from_numpy(frames[:32]).to(dev).float() / 255.0
+    with torch.inference_mode():
+        logits, _, uv = model.forward_unet(x)
+        stn_in = model._stn_input(x, logits, uv)
+
+        def trunk(v):
+            v = torch.relu(bn_apply(_conv(nchw(v), stn.conv0), stn.bn1, False))
+            v = F.max_pool2d(v, 3, 2, 1)
+            for stage in (stn.layer1, stn.layer2, stn.layer3, stn.layer4):
+                v = stage(v)
+            return v.mean(dim=(2, 3))
+
+        def head(f):
+            return F.linear(f.float(), stn.reg.weight.float(), stn.reg.bias.float())
+
+        th32 = stn(stn_in)
+        th1 = torch.cat([stn(stn_in[i:i + 1]) for i in range(32)])
+        f32_ = trunk(stn_in)
+        f1 = torch.cat([trunk(stn_in[i:i + 1]) for i in range(32)])
+        h32, h1 = head(f32_), torch.cat([head(f32_[i:i + 1]) for i in range(32)])
+        if not torch.equal(th32.view(32, 9), head(f32_)):
+            raise AssertionError("serve artifact: the STN replay is not the STN")
+    log(f"serve artifact: bf16 STN replayed alone, bucket 32 against bucket 1 (the same UNet "
+        f"logits): theta max abs {(th32 - th1).abs().max().item():.3e}; the ResNet trunk's "
+        f"pooled features {(f32_.float() - f1.float()).abs().max().item():.3e} (max "
+        f"|feature| {f1.float().abs().max().item():.3e}); the linear head alone on the same "
+        f"features {(h32 - h1).abs().max().item():.3e} [{card}]")
+    del bundle, live, model, stn, x, logits, stn_in
+
+    # -- f32: an artifact exported on the card against one exported on the CPU
+    f32 = argv + ["--compute_dtype", "float32", "--buckets", "2"]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        on = dev.type if device == "cuda" else "cpu"
+        export_serving.main(f32 + ["--dst", os.path.join(d, f"f32_{device}"), "--device", on])
+        fn, _ = load_serving(os.path.join(d, f"f32_{device}", "b2"), on)
+        with torch.inference_mode():
+            n0 = conv3x3.launches
+            outs[device] = {k: v.cpu() for k, v in
+                            fn(torch.from_numpy(frames[:2]).to(on)).items()}
+            if (conv3x3.launches > n0) != (on == "cuda"):
+                raise AssertionError(f"serve artifact f32 {device}: K2 launches wrong")
+    torch.backends.cudnn.allow_tf32 = True      # the bf16 CLI's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    diff = _output_gap(outs["cuda"], outs["cpu"])
+    log(f"serve artifact f32 (TF32 off): exported on the card against exported on the CPU, "
+        f"2 frames: theta max abs {diff['theta']:.3e} (bound 2e-4), score "
+        f"{diff['consist_score']:.3e} (1e-3), poi {diff['poi']:.3e} (5e-4)")
+    if not (diff["theta"] <= 2e-4 and diff["consist_score"] <= 1e-3 and diff["poi"] <= 5e-4):
+        raise AssertionError("serve artifact: the f32 CUDA artifact disagrees with the CPU's")
 
 
 KERNEL_TABLE = [   # name, source, the TPU kernel it replaces
@@ -2789,6 +3180,7 @@ def main() -> int:
     run("train example conf", phase_train_example, dev, card, work)
     run("predict resnet50", phase_predict_resnet50, dev, card)
     run("serve", phase_serve, dev, card, work)
+    run("serve artifact", phase_serve_artifact, dev, card, work)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")
 

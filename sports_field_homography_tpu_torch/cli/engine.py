@@ -107,8 +107,9 @@ def predict_fn(bundle: ModelBundle, consistency: bool,
     """The predict CLI's device program: uint8 frames in, the ``keep``
     outputs out, all on the model's device.
 
-    It divides the (B, H, W, 3) uint8 frames by 255 (true division:
-    ``x * (1 / 255)`` differs in the last ulp), runs ``Reconstructor.predict``
+    It divides (B, H, W, 3) uint8 frames by 255 (true division:
+    ``x * (1 / 255)`` differs in the last ulp; float32 frames are taken
+    as already in [0, 1]), runs ``Reconstructor.predict``
     (K1 on the full warp grid when ``warp_mask`` is kept, else on the
     logits grid for the score alone; ``poi`` when it is kept), narrows the
     argmax of the logits (``segm_mask``) and the warp labels to uint8, and
@@ -120,7 +121,8 @@ def predict_fn(bundle: ModelBundle, consistency: bool,
                  if "poi" in keep else None)
 
     def fn(frames: torch.Tensor) -> Dict[str, torch.Tensor]:
-        preds = bundle.model.predict(frames.float() / 255.0, bundle.court_labels,
+        x = frames.float() / 255.0 if frames.dtype == torch.uint8 else frames.float()
+        preds = bundle.model.predict(x, bundle.court_labels,
                                      bundle.value_table, consistency=consistency,
                                      warp_mask="warp_mask" in keep, court_poi=court_poi)
         if "segm_mask" in keep and "logits" in preds:

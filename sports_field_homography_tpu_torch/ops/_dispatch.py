@@ -3,6 +3,8 @@
 A wrapper takes its plain PyTorch version only for tensors on the CPU, and
 launches its CUDA kernel for tensors on a CUDA device.  Anything else
 raises: there is no fallback from a failed kernel to the plain version.
+For the ``sfh`` operators (``ops/library.py``) the dispatcher makes that
+choice and the wrappers check the devices before it.
 """
 from __future__ import annotations
 
@@ -16,15 +18,21 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on the CPU, False when every tensor is on
     one CUDA device; raises on a mix or on any other device."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
+    same_device(*tensors)
+    dev = tensors[0].device
     if dev.type == "cpu":
         return True
     if dev.type == "cuda":
         return False
     raise ValueError(f"unsupported device {dev}")
+
+
+def same_device(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one device (the operators' fake
+    implementations, whose tensors may be fake or on ``meta``)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
 
 
 def check_pixels(n: int, h: int, w: int) -> None:

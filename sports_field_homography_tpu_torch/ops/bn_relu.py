@@ -10,7 +10,8 @@ public ``bn_relu_train``).
 * ``bn_relu_norm(x, mean, inv, beta)``: ``relu((x - mean) * inv + beta)``
   per channel, each operation rounded on its own in f32 and the result
   rounded once to x's dtype: in f32 the kernel equals the plain version
-  bit for bit.
+  bit for bit.  The wrapper calls the operator ``sfh::bn_relu_norm``
+  (``ops/library.py``).
 * ``bn_relu_train(x, gamma, beta, eps)``: stats, then the biased variance
   and norm; an autograd Function whose backward is K7-bwd
   (``ops/bn_relu_bwd.py``).  Mean and var are returned detached, as the
@@ -26,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from . import _dispatch
+from . import _dispatch, library
 from .bn_relu_bwd import bn_relu_bwd
 from .build import check, load_library
 from .conv3x3 import apply_prologue
@@ -89,18 +90,9 @@ def bn_relu_norm_plain(x, mean, inv, beta):
     return apply_prologue(x, (mean, inv, beta))
 
 
-def bn_relu_norm(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
-                 beta: torch.Tensor) -> torch.Tensor:
-    """relu((x - mean) * inv + beta) per channel (last axis), in f32,
-    rounded once to x's dtype.
-
-    Args:
-      x: (N, H, W, C) float32 or bfloat16.
-      mean, inv, beta: (C,) vectors (used in f32); inv = gamma * rstd for a
-        train BN, gamma * rsqrt(running_var + eps) for an eval one.
-    """
-    if _dispatch.on_cpu(x, mean, inv, beta):
-        return bn_relu_norm_plain(x, mean, inv, beta)
+def _norm_cuda(x, mean, inv, beta):
+    """sfh::bn_relu_norm on CUDA: the kernel's launch."""
+    _dispatch.same_device(x, mean, inv, beta)
     _check(x, mean, inv, beta)
     code_dt = _dispatch.dtype_code(x.dtype)
     n, h, w, c = x.shape
@@ -119,6 +111,36 @@ def bn_relu_norm(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
             "bn_relu_norm")
     bn_relu_norm.launches += 1
     return y
+
+
+def _norm_cpu(x, mean, inv, beta):
+    _dispatch.same_device(x, mean, inv, beta)
+    return bn_relu_norm_plain(x, mean, inv, beta)
+
+
+def _norm_fake(x, mean, inv, beta):
+    _dispatch.same_device(x, mean, inv, beta)
+    _check(x, mean, inv, beta)
+    return x.new_empty(x.shape)
+
+
+_NORM_OP = library.define(
+    "bn_relu_norm(Tensor x, Tensor mean, Tensor inv, Tensor beta) -> Tensor",
+    _norm_cpu, _norm_cuda, _norm_fake)
+
+
+def bn_relu_norm(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+                 beta: torch.Tensor) -> torch.Tensor:
+    """relu((x - mean) * inv + beta) per channel (last axis), in f32,
+    rounded once to x's dtype (``sfh::bn_relu_norm``).
+
+    Args:
+      x: (N, H, W, C) float32 or bfloat16.
+      mean, inv, beta: (C,) vectors (used in f32); inv = gamma * rstd for a
+        train BN, gamma * rsqrt(running_var + eps) for an eval one.
+    """
+    _dispatch.on_cpu(x, mean, inv, beta)        # one device, CPU or CUDA
+    return _NORM_OP(x, mean, inv, beta)
 
 
 bn_relu_stats.launches = 0

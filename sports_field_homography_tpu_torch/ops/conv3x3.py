@@ -30,15 +30,19 @@ w2))`` as ``conv(x, w) + conv(x2, w2)`` in one kernel pass, the K loop
 running over x's 9*Cin rows and then over x2's 9*Cin2 rows into the same
 accumulator.  The prologue applies to x only, the bias is added once and
 the stats are those of the sum.  Its plain version concatenates.
+
+The wrapper casts the weights to x's dtype and calls the operator
+``sfh::conv3x3`` (``sfh::conv3x3_stats`` with the stats; ``ops/library.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from . import _dispatch
+from . import _dispatch, library
 from .build import check, load_library
 from .reduce import column_sums
 
@@ -135,34 +139,11 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
     return y.to(dt).contiguous()
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor,
-            bias: Optional[torch.Tensor] = None,
-            prologue: Optional[Sequence[torch.Tensor]] = None,
-            stats: bool = False, x2: Optional[torch.Tensor] = None,
-            w2: Optional[torch.Tensor] = None):
-    """y = conv3x3(prologue(x), w) [+ conv3x3(x2, w2)] + bias over NHWC.
-
-    Args:
-      x: (N, H, W, Cin) float32 or bfloat16.
-      w: (3, 3, Cin, Cout) HWIO weights (cast to x's dtype).
-      bias: (Cout,) or None; added in f32.
-      prologue: optional (mean, inv, beta) per-input-channel vectors;
-        applies relu((x - mean) * inv + beta) to x first.  The zero padding
-        stays zero.
-      stats: also return the (2, Cout) f32 sums [sum(y), sum(y*y)] over
-        N*H*W, of the f32 result before its rounding to x's dtype.
-      x2, w2: optional second input (N, H, W, Cin2) in x's dtype and its
-        (3, 3, Cin2, Cout) weights, summed into the same output (the conv
-        of the channel concat [x, x2]); no prologue on x2.
-    Returns:
-      (N, H, W, Cout) in x's dtype, or (y, sums) with ``stats``.
-    """
-    extra = [bias] if bias is not None else []
-    if prologue is not None:
-        extra += list(prologue)
-    extra += [t for t in (x2, w2) if t is not None]
-    if _dispatch.on_cpu(x, w, *extra):
-        return conv3x3_plain(x, w, bias, prologue, stats, x2, w2)
+def _conv3x3_cuda(x, w, bias, mean, inv, beta, x2, w2, stats=False):
+    """sfh::conv3x3 (and sfh::conv3x3_stats) on CUDA: the kernel's launch,
+    on the route ``tensor_core_route`` picks."""
+    prologue = _prologue(mean, inv, beta)
+    _dispatch.same_device(x, w, *_optional(bias, prologue, x2, w2))
     _check(x, w)
     _check_second(x, w, x2, w2)
     code_dt = _dispatch.dtype_code(x.dtype)
@@ -211,6 +192,74 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
         return y
     conv3x3.stats_launches += 1
     return y, column_sums(part).view(2, cout)
+
+
+def _prologue(mean, inv, beta):
+    return None if mean is None else (mean, inv, beta)
+
+
+def _optional(bias, prologue, x2, w2):
+    """The optional tensors of a conv3x3 call that are given."""
+    extra = [bias] if bias is not None else []
+    if prologue is not None:
+        extra += list(prologue)
+    return extra + [t for t in (x2, w2) if t is not None]
+
+
+def _conv3x3_cpu(x, w, bias, mean, inv, beta, x2, w2, stats=False):
+    prologue = _prologue(mean, inv, beta)
+    _dispatch.same_device(x, w, *_optional(bias, prologue, x2, w2))
+    return conv3x3_plain(x, w, bias, prologue, stats, x2, w2)
+
+
+def _conv3x3_fake(x, w, bias, mean, inv, beta, x2, w2, stats=False):
+    _dispatch.same_device(x, w, *_optional(bias, _prologue(mean, inv, beta), x2, w2))
+    _check(x, w)
+    _check_second(x, w, x2, w2)
+    y = x.new_empty((*x.shape[:3], w.shape[-1]))
+    return (y, x.new_empty((2, w.shape[-1]), dtype=torch.float32)) if stats else y
+
+
+_ARGS = ("(Tensor x, Tensor w, Tensor? bias, Tensor? mean, Tensor? inv, Tensor? beta, "
+         "Tensor? x2, Tensor? w2)")
+_OP = library.define("conv3x3" + _ARGS + " -> Tensor",
+                     _conv3x3_cpu, _conv3x3_cuda, _conv3x3_fake)
+_STATS_OP = library.define(
+    "conv3x3_stats" + _ARGS + " -> (Tensor, Tensor)",
+    *(functools.partial(f, stats=True) for f in (_conv3x3_cpu, _conv3x3_cuda, _conv3x3_fake)))
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor,
+            bias: Optional[torch.Tensor] = None,
+            prologue: Optional[Sequence[torch.Tensor]] = None,
+            stats: bool = False, x2: Optional[torch.Tensor] = None,
+            w2: Optional[torch.Tensor] = None):
+    """y = conv3x3(prologue(x), w) [+ conv3x3(x2, w2)] + bias over NHWC
+    (``sfh::conv3x3``, or ``sfh::conv3x3_stats`` with ``stats``).
+
+    Args:
+      x: (N, H, W, Cin) float32 or bfloat16.
+      w: (3, 3, Cin, Cout) HWIO weights (cast to x's dtype).
+      bias: (Cout,) or None; added in f32.
+      prologue: optional (mean, inv, beta) per-input-channel vectors;
+        applies relu((x - mean) * inv + beta) to x first.  The zero padding
+        stays zero.
+      stats: also return the (2, Cout) f32 sums [sum(y), sum(y*y)] over
+        N*H*W, of the f32 result before its rounding to x's dtype.
+      x2, w2: optional second input (N, H, W, Cin2) in x's dtype and its
+        (3, 3, Cin2, Cout) weights, summed into the same output (the conv
+        of the channel concat [x, x2]); no prologue on x2.
+    Returns:
+      (N, H, W, Cout) in x's dtype, or (y, sums) with ``stats``.
+    """
+    _dispatch.on_cpu(x, w, *_optional(bias, prologue, x2, w2))  # one device, CPU or CUDA
+    if prologue is not None and len(prologue) != 3:
+        raise ValueError("prologue is (mean, inv, beta)")
+    mean, inv, beta = prologue if prologue is not None else (None, None, None)
+    # the weights in x's dtype before the operator, as the kernels use them
+    w = w.to(x.dtype)
+    w2 = None if w2 is None else w2.to(x.dtype)
+    return (_STATS_OP if stats else _OP)(x, w, bias, mean, inv, beta, x2, w2)
 
 
 conv3x3.launches = 0

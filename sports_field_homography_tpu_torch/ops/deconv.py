@@ -22,6 +22,9 @@ column (p*2 + q)*Cout + o (JAX's ``_parity_weights``), and its transpose
 ``pack_weights_t`` (4*Cout, Cin).  A tensor-core launch that fails raises;
 it is never handed to the other kernel.
 
+The forward is the operator ``sfh::deconv2x2`` (``ops/library.py``); the
+backward, which only training runs, calls its kernel directly.
+
 The plain versions are ``F.conv_transpose2d`` in the input dtype with the
 bias added in f32, and for the backward ``F.conv2d`` (dx: a stride-2 conv
 of dy with the same weights) plus an einsum in f32 for dW.
@@ -33,7 +36,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _dispatch
+from . import _dispatch, library
 from .build import check, load_library
 from .conv3x3 import aligned
 from .reduce import column_sums, split_reduction
@@ -92,9 +95,10 @@ def deconv2x2_plain(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype).contiguous()
 
 
-def _forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    if _dispatch.on_cpu(x, w, bias):
-        return deconv2x2_plain(x, w, bias)
+def _deconv_cuda(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """sfh::deconv2x2 on CUDA: the kernel's launch, on the route
+    ``tensor_core_route`` picks."""
+    _dispatch.same_device(x, w, bias)
     _check(x, w, bias)
     code_dt = _dispatch.dtype_code(x.dtype)
     n, h, wd, cin = x.shape
@@ -123,6 +127,28 @@ def _forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tens
     if tc:
         deconv2x2.tc_launches += 1
     return y
+
+
+def _deconv_cpu(x, w, bias):
+    _dispatch.same_device(x, w, bias)
+    return deconv2x2_plain(x, w, bias)
+
+
+def _deconv_fake(x, w, bias):
+    _dispatch.same_device(x, w, bias)
+    _check(x, w, bias)
+    n, h, wd, _ = x.shape
+    return x.new_empty((n, 2 * h, 2 * wd, w.shape[-1]))
+
+
+_OP = library.define("deconv2x2(Tensor x, Tensor w, Tensor bias) -> Tensor",
+                     _deconv_cpu, _deconv_cuda, _deconv_fake)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """K3 through ``sfh::deconv2x2``, the weights cast to x's dtype first."""
+    _dispatch.on_cpu(x, w, bias)        # one device, CPU or CUDA
+    return _OP(x, w.to(x.dtype), bias)
 
 
 def _check_bwd(x, dy, w):

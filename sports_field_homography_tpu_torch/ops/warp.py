@@ -9,6 +9,7 @@ in a per-label f32 table (``template_value_table``: the value JAX's
 interval table gives the label), or 0 outside the template.  The CUDA
 kernel is ``csrc/warp_nearest.cu``; the plain version below computes the
 same coordinates with the same rounding, so the two agree label for label.
+The wrapper calls the operator ``sfh::warp_nearest`` (``ops/library.py``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from ..geometry.warp import _unnormalize, subsampled_warp_grid, warp_grid
-from . import _dispatch
+from . import _dispatch, library
 from .build import check, load_library
 
 __all__ = ["warp_nearest", "warp_nearest_plain", "template_value_step",
@@ -106,24 +107,9 @@ def warp_nearest_plain(template_labels: torch.Tensor, theta: torch.Tensor,
     return torch.where(valid, values[labels], zero)
 
 
-def warp_nearest(template_labels: torch.Tensor, theta: torch.Tensor, out_hw,
-                 values: torch.Tensor, sample_hw=None) -> torch.Tensor:
-    """Nearest homography warp of a uint8 label template.
-
-    Args:
-      template_labels: (Ht, Wt) uint8 class labels.
-      theta: (B, 3, 3) or (B, 1, 3, 3) frame -> court homographies; used in
-        float32 whatever the model's compute dtype.
-      out_hw: (Ho, Wo) output grid.
-      values: (256,) float32 value of each label (``template_value_table``).
-      sample_hw: optional (Hs, Ws): evaluate only the nearest-resize sample
-        points of the out_hw grid, which equals warping at out_hw and then
-        nearest-resizing to sample_hw.
-    Returns:
-      (B, Ho, Wo) or (B, Hs, Ws) float32, zero outside the template.
-    """
-    if _dispatch.on_cpu(template_labels, theta, values):
-        return warp_nearest_plain(template_labels, theta, out_hw, values, sample_hw)
+def _warp_cuda(template_labels, theta, values, out_hw, sample_hw):
+    """sfh::warp_nearest on CUDA: the kernel's launch."""
+    _dispatch.same_device(template_labels, theta, values)
     theta = _check_args(template_labels, theta, values).contiguous()
     tmpl = template_labels.contiguous()
     values = values.contiguous()
@@ -146,6 +132,46 @@ def warp_nearest(template_labels: torch.Tensor, theta: torch.Tensor, out_hw,
     warp_nearest.launches += 1
     warp_nearest.vec_launches += vec
     return out
+
+
+def _warp_cpu(template_labels, theta, values, out_hw, sample_hw):
+    _dispatch.same_device(template_labels, theta, values)
+    return warp_nearest_plain(template_labels, theta, tuple(out_hw), values,
+                              None if sample_hw is None else tuple(sample_hw))
+
+
+def _warp_fake(template_labels, theta, values, out_hw, sample_hw):
+    _dispatch.same_device(template_labels, theta, values)
+    theta = _check_args(template_labels, theta, values)
+    ho, wo = sample_hw if sample_hw is not None else out_hw
+    return theta.new_empty((theta.shape[0], ho, wo), dtype=torch.float32)
+
+
+_OP = library.define(
+    "warp_nearest(Tensor template_labels, Tensor theta, Tensor values, int[2] out_hw, "
+    "int[2]? sample_hw) -> Tensor", _warp_cpu, _warp_cuda, _warp_fake)
+
+
+def warp_nearest(template_labels: torch.Tensor, theta: torch.Tensor, out_hw,
+                 values: torch.Tensor, sample_hw=None) -> torch.Tensor:
+    """Nearest homography warp of a uint8 label template (``sfh::warp_nearest``).
+
+    Args:
+      template_labels: (Ht, Wt) uint8 class labels.
+      theta: (B, 3, 3) or (B, 1, 3, 3) frame -> court homographies; used in
+        float32 whatever the model's compute dtype.
+      out_hw: (Ho, Wo) output grid.
+      values: (256,) float32 value of each label (``template_value_table``).
+      sample_hw: optional (Hs, Ws): evaluate only the nearest-resize sample
+        points of the out_hw grid, which equals warping at out_hw and then
+        nearest-resizing to sample_hw.
+    Returns:
+      (B, Ho, Wo) or (B, Hs, Ws) float32, zero outside the template.
+    """
+    _dispatch.on_cpu(template_labels, theta, values)    # one device, CPU or CUDA
+    theta = _check_args(template_labels, theta, values)
+    return _OP(template_labels, theta, values, [int(v) for v in out_hw],
+               None if sample_hw is None else [int(v) for v in sample_hw])
 
 
 warp_nearest.launches = 0

@@ -12,6 +12,20 @@ score or on the full grid for ``warp_mask``) behind a dynamic batcher
 The weights are a reference-keyed ``.pth`` or the JAX package's
 ``.msgpack``, with the ``conf.yaml`` beside them, as for the predict CLI.
 
+Or an exported program (``--serving_artifact``, written by
+``cli.export_serving``; ``compat/serving.py``), which holds its weights and
+court constants and loads without the model code, on the device it was
+exported on (``--device``)::
+
+    python -m sports_field_homography_tpu_torch.cli.export_serving \
+        --load ckpt/CP_epoch30.pth --buckets 1,2,4,8,16,32 --dst ckpt/serving
+    python -m sports_field_homography_tpu_torch.serve.server \
+        --serving_artifact ckpt/serving --port 8800
+
+A directory of ``b{N}`` artifacts serves exactly those buckets, one
+fixed-batch artifact pins the batcher to its batch, and a ``poly_batch``
+artifact takes ``--buckets`` (default: powers of two up to ``--max_batch``).
+
 Endpoints (the JAX server's):
   * ``POST /predict`` -- body = one encoded image.  With cv2 installed, any
     format and size cv2 reads, resized to the model's size as the video
@@ -23,21 +37,27 @@ Endpoints (the JAX server's):
   * ``GET /metrics`` -- the same counters in the Prometheus text format.
 
 SIGTERM drains: the server stops accepting, serves what is queued, and
-exits 0.  Refused before any model is built: ``--serving_artifact`` and
-``--num_devices`` above 1 (ROADMAP.md queue 1 items 12 and 9).
+exits 0.  Refused before any model is built: ``--num_devices`` above 1 with
+a checkpoint (ROADMAP.md queue 1 item 9); with an artifact it is logged
+and ignored, as the JAX server does.
 """
 from __future__ import annotations
 
 import base64
+import glob
 import json
+import os
+import re
 import signal
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..cli.engine import build_model, discover_conf, predict_fn
+from ..compat.serving import load_serving, read_meta
 from ..data.image import have_cv2
 from ..data.png import decode_png, encode_png
 from ..utils.config import get_serving_args, parse_config, replace_args
@@ -53,13 +73,10 @@ _CONF_IGNORE = ["conf_path", "batchsize", "load", "compute_dtype", "num_devices"
 
 
 def _check_slice(args) -> None:
-    """Raise, before any model is built, on what this port does not serve."""
-    if args.serving_artifact:
-        raise NotImplementedError(
-            "--serving_artifact: serving an exported program is ROADMAP.md queue 1 "
-            "item 12 (the kernels as torch.library custom ops); serve the checkpoint "
-            "with --load")
-    if args.num_devices not in (None, 1) or args.num_hosts is not None \
+    """Raise, before any model is built, on what this port does not serve
+    (``--num_devices`` with an artifact is ignored in ``create_server``)."""
+    devices = None if args.serving_artifact else args.num_devices
+    if devices not in (None, 1) or args.num_hosts is not None \
             or args.coordinator is not None:
         raise NotImplementedError(
             "--num_devices: multi-device serving is ROADMAP.md queue 1 item 9 (step 7)")
@@ -142,6 +159,48 @@ def _build_from_checkpoint(args):
                          fold_bn=bool(args.fold_bn))
     w, h = bundle.config.target_size
     return predict_fn(bundle, consistency, keep), (h, w, 3), bundle.device
+
+
+def _as_input(frames, dtype: str):
+    """The batcher's uint8 frames in an artifact's input dtype: uint8 as
+    they are, float32 in [0, 1] (what the program takes unnormalized)."""
+    return frames if dtype == "uint8" else frames.float() / 255.0
+
+
+def _build_from_artifact(path: str, device: str):
+    """Serve exported programs (``compat/serving.py``), weights inside, no
+    model code.  A directory of ``b{N}`` sub-artifacts (``cli.export_serving
+    --buckets``) serves exactly those batches as its buckets; one
+    fixed-batch artifact pins the batcher to its batch; a ``poly_batch``
+    artifact takes the server's buckets.  Every artifact must have been
+    exported for ``device``'s type.  Returns ``(run_batch, frame_shape,
+    device, forced buckets or None)``."""
+    subs = [d for d in glob.glob(os.path.join(path, "b*"))
+            if re.fullmatch(r"b\d+", os.path.basename(d))
+            and os.path.exists(os.path.join(d, "meta.json"))]
+    dirs = subs or [path]
+    specs = [read_meta(d)["input"] for d in dirs]
+    frames = {tuple(int(v) for v in s["shape"][1:3]) for s in specs}
+    dtypes = {s["dtype"] for s in specs}
+    if len(frames) != 1 or len(dtypes) != 1:
+        raise ValueError(f"bucket artifacts under {path} disagree on the frame size or "
+                         f"input dtype: {sorted(frames)}, {sorted(dtypes)}")
+    if subs and any(s["poly_batch"] for s in specs):
+        raise ValueError(f"{path}: a poly_batch artifact in a b{{N}} bucket directory")
+    (h, w), = frames
+    (dtype,) = dtypes
+    if not subs and specs[0]["poly_batch"]:
+        poly, _ = load_serving(path, device)
+        return (lambda x: poly(_as_input(x, dtype))), (h, w, 3), torch.device(device), None
+    fns = {spec["shape"][0]: load_serving(d, device)[0] for d, spec in zip(dirs, specs)}
+
+    def run_batch(x):
+        fn = fns.get(x.shape[0])
+        if fn is None:
+            raise ValueError(f"no bucket artifact for batch {x.shape[0]} (have {sorted(fns)})")
+        return fn(_as_input(x, dtype))
+
+    return run_batch, (h, w, 3), torch.device(device), sorted(fns)
 
 
 def _prometheus_metrics(stats: dict) -> str:
@@ -270,9 +329,24 @@ def create_server(argv=None):
     # also imports cv2 now rather than in the first request's handler
     logger.info("decoding request bodies with " + (
         "cv2" if have_cv2() else "data/png.py: PNG only, at the model's size (no cv2)"))
-    run_batch, frame_shape, device = _build_from_checkpoint(args)
-    buckets = (sorted(int(b) for b in args.buckets.split(",")) if args.buckets
-               else default_buckets(args.max_batch))
+    forced = None
+    if args.serving_artifact:
+        if (args.num_devices or 1) > 1:
+            logger.info("--num_devices is ignored with --serving_artifact (an artifact is "
+                        "a one-device program; serve a checkpoint for more devices)")
+        run_batch, frame_shape, device, forced = _build_from_artifact(
+            args.serving_artifact, args.device)
+    else:
+        run_batch, frame_shape, device = _build_from_checkpoint(args)
+    if forced is not None:
+        buckets = forced
+        logger.info(f"fixed-batch artifact: serving bucket {forced[0]} only (export with "
+                    "--buckets or --poly_batch for size-adaptive buckets)"
+                    if len(forced) == 1 else f"bucket artifacts: serving buckets {forced}")
+    elif args.buckets:
+        buckets = sorted(int(b) for b in args.buckets.split(","))
+    else:
+        buckets = default_buckets(args.max_batch)
     batcher = DynamicBatcher(run_batch, frame_shape, max_batch=buckets[-1],
                              max_delay_ms=args.max_delay_ms, buckets=buckets,
                              device=device)

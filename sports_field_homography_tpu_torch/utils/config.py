@@ -236,8 +236,10 @@ def get_serving_args(argv=None):
                         help="Channel order frames are fed to the model in "
                              "(bgr = the video source's)")
     parser.add_argument("--serving_artifact", type=str, default=None,
-                        help="Accepted so the JAX command lines parse; refused "
-                             "(ROADMAP.md queue 1 item 12)")
+                        help="Serve an exported program (cli.export_serving: one "
+                             "artifact, or a directory of b{N} bucket artifacts) "
+                             "instead of --load; it runs on the --device type it "
+                             "was exported on")
     parser.add_argument("--no_warmup", action="store_true",
                         help="Skip running every batch bucket at startup")
     parser.add_argument("--fold_bn", type=int, default=1,

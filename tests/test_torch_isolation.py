@@ -45,6 +45,36 @@ def test_port_imports_no_jax():
     assert out.stdout.startswith("ok")
 
 
+def test_serving_modules_import_no_jax():
+    """The serving artifact's modules (the operator namespace, the export
+    and load functions, the export CLI, the server) import in a fresh
+    interpreter without jax or the JAX package, and loading the operators
+    registers the predict path's five ``sfh`` operators, with no model code."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        import torch
+        from sports_field_homography_tpu_torch.ops import library
+        library.load_operators()
+        ops = sorted(n for n in ("warp_nearest", "conv3x3", "conv3x3_stats", "deconv2x2",
+                                 "bn_relu_norm") if hasattr(torch.ops.sfh, n))
+        assert len(ops) == 5, ops
+        assert not any(m.startswith("sports_field_homography_tpu_torch.models")
+                       for m in sys.modules)
+        import sports_field_homography_tpu_torch.compat.serving
+        import sports_field_homography_tpu_torch.cli.export_serving
+        import sports_field_homography_tpu_torch.serve.server
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "msgpack")
+                     or m.startswith("sports_field_homography_tpu."))
+        assert not bad, bad
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_train_cli_runs_the_card_machines_way(tmp_path):
     """The train CLI as the GPU machine runs it, in a fresh interpreter
     where Pillow, cv2, PyYAML and tensorboard do not import: a JSON conf

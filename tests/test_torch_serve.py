@@ -5,13 +5,18 @@ resnet18 img+mask model from a numpy seed, theta kept near the identity so
 that every point of interest projects near the frame) with its
 ``conf.yaml``, on port 0, and answer the same request bytes.  Bounds
 (``docs/PARITY.md``): theta max-abs 2e-4, score 1e-3, poi 5e-4, decoded
-warp-mask pixels differ on < 0.1 %.
+warp-mask pixels differ on < 0.1 %.  The same checkpoint exported with
+``cli.export_serving`` serves through ``--serving_artifact`` (bucket
+directories, fixed and poly_batch programs), held to the live program bit
+for bit and to the JAX package's artifact within those bounds.
 """
 import base64
 import http.client
+import importlib.util
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -24,12 +29,16 @@ import pytest
 import torch
 from PIL import Image
 
+from sports_field_homography_tpu.compat.serving import load_serving as jax_load_serving
 from sports_field_homography_tpu.serve.server import create_server as jax_create_server
 from sports_field_homography_tpu.utils.checkpoint import save_checkpoint
+from sports_field_homography_tpu_torch.cli import export_serving
+from sports_field_homography_tpu_torch.cli.engine import predict_fn
+from sports_field_homography_tpu_torch.compat.serving import export_predict, save_serving
 from sports_field_homography_tpu_torch.data.png import decode_png, encode_png
 from sports_field_homography_tpu_torch.serve import server as port_server
 from sports_field_homography_tpu_torch.serve.batcher import DynamicBatcher, _Pending
-from sports_field_homography_tpu_torch.utils.config import get_serving_args
+from sports_field_homography_tpu_torch.utils.config import get_prediction_args, get_serving_args
 from test_torch_predict_full import near_identity_variables
 from test_torch_isolation import png_with_filters
 from test_torch_predict_cli import COURT, POI, H, W
@@ -366,7 +375,6 @@ def test_batcher_close_fails_stragglers():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--serving_artifact", "some/dir"], "queue 1 item 12"),
     (["--num_devices", "2"], "multi-device"),
 ])
 def test_refuses_before_building(monkeypatch, extra, match):
@@ -454,3 +462,182 @@ def test_sigterm_drains_in_flight(servers):
             proc.kill()
     assert proc.returncode == 0, out[-2000:]
     assert results == [True, True, True], results
+
+
+# -- the exported program (--serving_artifact): cli.export_serving on the same
+# checkpoint, f32 on the CPU, as JAX tests/test_serve.py:255-300 serves its own
+
+ART_REQ = "theta,poi,consistency"
+
+
+def _export_argv(cp):
+    return ["--load", cp, "--req_outputs", ART_REQ, "--device", "cpu",
+            "--compute_dtype", "float32", "--out_size", str(W), str(H),
+            "--court_img", COURT, "--court_poi", POI]
+
+
+@pytest.fixture(scope="module")
+def artifacts(servers, tmp_path_factory):
+    """``b1``/``b2`` bucket artifacts, one fixed-batch (2) artifact and one
+    poly_batch artifact of theta, poi and the score, and the live program
+    they were exported from."""
+    root = tmp_path_factory.mktemp("artifacts")
+    argv = _export_argv(servers["cp"])
+    export_serving.main(argv + ["--buckets", "1,2", "--dst", str(root / "buckets")])
+    bundle, consistency, project_poi, keep = export_serving.build_bundle(
+        get_prediction_args(argv))
+    for name, poly, dtype in (("fixed", False, "uint8"), ("fixed_float32_input", False, "float32"),
+                              ("poly", True, "uint8")):
+        ep, meta = export_predict(bundle, consistency, project_poi, keep, batch_size=2,
+                                  input_dtype=dtype, poly_batch=poly)
+        save_serving(str(root / name), ep, meta)
+    yield {"root": root, "live": predict_fn(bundle, consistency, keep)}
+    shutil.rmtree(root, ignore_errors=True)     # 160 MB a program
+
+
+def _art_serve(path, *extra):
+    return _serve(port_server.create_server,
+                  ["--serving_artifact", str(path), "--port", "0", "--device", "cpu",
+                   "--max_delay_ms", "200"] + list(extra))
+
+
+def _stop(httpd, batcher):
+    httpd.shutdown()
+    httpd.server_close()
+    batcher.close()
+
+
+def _direct(live, imgs):
+    with torch.inference_mode():
+        out = live(torch.from_numpy(np.stack(imgs)))
+    return [{"theta": out["theta"][i].double().reshape(3, 3).tolist(),
+             "score": float(out["consist_score"][i]),
+             "poi": out["poi"][i].double().tolist()} for i in range(len(imgs))]
+
+
+def _concurrent(port, bodies):
+    out = [None] * len(bodies)
+
+    def post(i):
+        out[i] = _post(port, bodies[i])
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    return out
+
+
+@pytest.mark.parametrize("name", ["fixed", "fixed_float32_input"])
+def test_serve_artifact_fixed_batch(artifacts, name):
+    """A fixed-batch artifact pins the batcher to its batch: a lone request
+    is padded to it, and answered as the program answers the padded batch
+    (an artifact that takes float32 frames gets the uint8 frame / 255)."""
+    httpd, batcher, port = _art_serve(artifacts["root"] / name)
+    try:
+        assert batcher.buckets == (2,)
+        img = np.random.default_rng(21).integers(0, 256, (H, W, 3), dtype=np.uint8)
+        status, body = _post(port, _png(img))
+        assert status == 200, body
+        assert set(body) == {"theta", "score", "poi"}
+        assert body == _direct(artifacts["live"], [img, img])[0]
+        assert batcher.stats()["batch_hist"] == {2: 1}
+        status, _, health = _request(port, "GET", "/healthz")
+        assert json.loads(health) == {"ok": True, "backend": "cpu"}
+    finally:
+        _stop(httpd, batcher)
+
+
+def test_serve_artifact_bucket_dir(artifacts):
+    """A directory of b{N} artifacts serves exactly those buckets: a lone
+    request in b1, two at once in b2, each answered bit for bit as the live
+    program answers that batch."""
+    httpd, batcher, port = _art_serve(artifacts["root"] / "buckets")
+    try:
+        assert batcher.buckets == (1, 2)
+        rng = np.random.default_rng(22)
+        imgs = [rng.integers(0, 256, (H, W, 3), dtype=np.uint8) for _ in range(3)]
+        status, alone = _post(port, _png(imgs[0]))
+        assert status == 200 and alone == _direct(artifacts["live"], imgs[:1])[0]
+        pair = _concurrent(port, [_png(i) for i in imgs[1:]])
+        assert batcher.stats()["batch_hist"] == {1: 1, 2: 1}, batcher.stats()
+        assert [b for _, b in pair] == _direct(artifacts["live"], imgs[1:])
+    finally:
+        _stop(httpd, batcher)
+
+
+def test_serve_artifact_matches_jax_artifact(artifacts, servers, tmp_path):
+    """The port's server on its bucket artifacts against the JAX package's
+    artifact from the same checkpoint and flags (``scripts/export_serving.py``)
+    on the same frame: theta 2e-4, score 1e-3, poi 5e-4."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_export_serving", os.path.join(REPO, "scripts", "export_serving.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    argv = [a for a in _export_argv(servers["cp"]) if a not in ("--device", "cpu")]
+    script.main(argv + ["--buckets", "1", "--dst", str(tmp_path / "jax")])
+    jfn, _ = jax_load_serving(str(tmp_path / "jax" / "b1"))
+    shutil.rmtree(tmp_path / "jax")         # loaded; 320 MB on disk
+    httpd, batcher, port = _art_serve(artifacts["root"] / "buckets")
+    try:
+        for seed in (23, 24):
+            img = np.random.default_rng(seed).integers(0, 256, (H, W, 3), dtype=np.uint8)
+            status, got = _post(port, _png(img))
+            assert status == 200, got
+            want = jfn(img[None])
+            _assert_parity(got, {"theta": np.asarray(want["theta"][0]).reshape(3, 3),
+                                 "score": float(want["consist_score"][0]),
+                                 "poi": np.asarray(want["poi"][0])})
+    finally:
+        _stop(httpd, batcher)
+
+
+@pytest.mark.parametrize("extra,buckets", [(["--buckets", "3,1"], (1, 3)),
+                                           (["--max_batch", "4"], (1, 2, 4))])
+def test_serve_artifact_poly_batch_buckets(artifacts, extra, buckets):
+    """A poly_batch artifact serves the server's buckets: ``--buckets``, else
+    powers of two up to ``--max_batch``; warm-up runs each."""
+    httpd, batcher, port = _art_serve(artifacts["root"] / "poly", *extra)
+    try:
+        assert batcher.buckets == buckets
+        img = np.random.default_rng(25).integers(0, 256, (H, W, 3), dtype=np.uint8)
+        status, body = _post(port, _png(img))
+        assert status == 200 and body == _direct(artifacts["live"], [img])[0]
+    finally:
+        _stop(httpd, batcher)
+
+
+def test_serve_artifact_refuses_disagreeing_frames(artifacts, tmp_path):
+    """Bucket artifacts that disagree on the frame size are refused before
+    any program loads."""
+    root = tmp_path / "mixed"
+    meta = json.loads((artifacts["root"] / "buckets" / "b2" / "meta.json").read_text())
+    for b, h in ((1, H), (2, 2 * H)):            # the metas alone: refused before any load
+        (root / f"b{b}").mkdir(parents=True)
+        meta["input"]["shape"][:2] = [b, h]
+        (root / f"b{b}" / "meta.json").write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match="disagree on the frame size"):
+        port_server.create_server(["--serving_artifact", str(root), "--port", "0",
+                                   "--device", "cpu"])
+
+
+def test_serve_artifact_refuses_another_device(artifacts):
+    """An artifact exported on the CPU refuses the default device (cuda),
+    with no fallback; the server does not start."""
+    with pytest.raises(ValueError, match="exported for"):
+        port_server.create_server(["--serving_artifact", str(artifacts["root"] / "fixed"),
+                                   "--port", "0"])
+
+
+def test_serve_artifact_ignores_num_devices(artifacts, capsys):
+    """``--num_devices`` above 1 with an artifact is logged and ignored, as
+    the JAX server does (a checkpoint refuses it: ``test_refuses_before_building``)."""
+    httpd, batcher, port = _art_serve(artifacts["root"] / "fixed", "--num_devices", "2",
+                                      "--no_warmup")
+    try:
+        assert "--num_devices is ignored" in capsys.readouterr().out
+        img = np.zeros((H, W, 3), np.uint8)
+        assert _post(port, _png(img))[0] == 200
+    finally:
+        _stop(httpd, batcher)
