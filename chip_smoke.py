@@ -172,6 +172,42 @@ its seconds:
    ctypes launch, the ``Library.define`` operator the port uses, a
    ``torch.library.custom_op`` of the same implementation, and the public
    wrapper.
+14. legacy: the legacy models (``models/legacy.py``) at 640x360 from one
+   seed: the deconv UNet of ``utils/hubconf.unet`` (K2, K7-fwd's norm, K3),
+   then ``UNetSTN`` and ``CourtReconstruction`` on the bilinear UNet (no
+   K3); bf16 at batch 8, every launch counted from 0 and on the tensor
+   cores, ms a batch; f32 (TF32 off) CUDA against the CPU on 2 frames
+   (logits rtol 1e-3 / atol 2e-4, theta <= 2e-4, the projection of the
+   CPU's theta on the card within 1e-5); ``eval_net`` (4 classes, and 1
+   class through the dice path) and ``eval_stn`` over two seeded batches
+   of 2, CUDA against the CPU, rtol 1e-3; ``geometry/court.Warper`` on its
+   default device, the card, at 1280x720 against ``cuda=False``: < 0.1 %
+   of pixels apart.
+15. pitch: the soccer-pitch variant (BASELINE config #5): 24 training and
+   8 validation 640x360 frames rendered from ``assets/pitch_mask_nc4_hd.png``
+   (RGBA class colours, converted to a label template by
+   ``data/synthetic.py``) with the 33 points of
+   ``template_pitch_points.json``; the train CLI for 3 steps at batch 8
+   with the hflip and ``pitch-poi-flip-mapping.json`` (phase 5's kernel and
+   route checks), the predict CLI on the validation frames from its
+   checkpoint (33 finite points a frame), and f32 CUDA against the CPU on 2
+   frames from that checkpoint: unit-normalized theta <= 2e-4 (a trained
+   head's theta is far from unit size; its raw gap and size are printed),
+   poi <= 5e-4, score <= 1e-3.
+16. video and viz (BASELINE config #3), where cv2 imports (else one line
+   says it skipped): 16 seeded 1280x720 frames written as MJPG in an .avi
+   (the writer's seconds; decode by ``_VideoDecodePool`` and sequentially,
+   timed); the predict CLI with ``--video_path``, ``debug`` and pickled
+   segm masks on phase 4's .pth (K1 once a batch on the full 1280x720
+   grid, every launch on its fast route, 16 records, debug renders and
+   masks; frames/s and the writer's busy share); the f32 CUDA records of a
+   4-frame clip against the CPU run's (theta 2e-4, score 1e-3, poi 5e-4
+   within a frame of the frame, and 5e-4 of their distance for the points
+   the seeded head sends tens of frame widths out);
+   then ``cli.viz_preds`` on the 16 records with the threshold at their
+   median score: K1 once a warped frame on the float4 route, the CUDA
+   renders equal to the CPU renders byte for byte, ``--no_encode`` unless
+   an ``ffmpeg`` binary is on PATH (then ``output.mp4`` too).
 
 The last two lines are JSON: the kernel table (each kernel's launches in
 the deconv predict run, K1's in the png full-output run, whose full grid
@@ -2855,7 +2891,7 @@ def _serve_conf(d):
     return os.path.join(d, "model.pth")
 
 
-def _counted(kernels, call):
+def _counted(kernels, call, tag="serve artifact"):
     """``call()``'s launches of the predict path's kernels, counted from 0,
     every K2 and K3 launch on the tensor cores and every K1 launch on the
     float4 stores; returns (launches, what call returned)."""
@@ -2870,8 +2906,8 @@ def _counted(kernels, call):
     out = call()
     if conv3x3.tc_launches != conv3x3.launches or deconv2x2.tc_launches != deconv2x2.launches \
             or warp_nearest.vec_launches != warp_nearest.launches:
-        raise AssertionError("serve artifact: a K2 or K3 launch left the tensor cores, or K1 "
-                             "the float4 route")
+        raise AssertionError(f"{tag}: a K2 or K3 launch left the tensor cores, or K1 the "
+                             "float4 route")
     return _predict_launches(kernels), out
 
 
@@ -3116,6 +3152,519 @@ def phase_serve_artifact(dev, card, work):
         raise AssertionError("serve artifact: the f32 CUDA artifact disagrees with the CPU's")
 
 
+LEGACY_WH = (640, 360)
+LEGACY_PARITY_FRAMES = 2
+
+
+def _legacy_models():
+    """The legacy family at 640x360 from one seed, on the CPU in f32: the
+    deconv UNet through ``utils/hubconf`` (its K3 route), a 1-class UNet
+    (``eval_net``'s dice path), and ``UNetSTN`` and ``CourtReconstruction``
+    on the bilinear UNet.  Weights as a trained model's are scaled, so that
+    eval BatchNorm keeps the activations near unit size (He-normal convs and
+    linears, BN scale and running variance in [0.5, 1.5], small biases and
+    running means), and the heads' last layer varied so that theta depends
+    on the frame."""
+    import torch
+    from torch import nn
+
+    from sports_field_homography_tpu_torch.models import legacy
+    from sports_field_homography_tpu_torch.utils import hubconf
+
+    gen = torch.Generator().manual_seed(3)
+    models = {"unet": hubconf.unet(4, bilinear=False),
+              "unet 1 class": hubconf.unet(1, bilinear=False),
+              "UNetSTN": legacy.UNetSTN(4, bilinear=True, input_size=LEGACY_WH),
+              "CourtReconstruction": legacy.CourtReconstruction(4, target_size=LEGACY_WH,
+                                                                bilinear=True)}
+
+    def normal(t, std):
+        t.copy_(torch.randn(t.shape, generator=gen) * std)
+
+    def uniform(t, lo, hi):
+        t.copy_(lo + torch.rand(t.shape, generator=gen) * (hi - lo))
+
+    with torch.no_grad():
+        for m in models.values():
+            for mod in m.modules():
+                if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                    fan_in = mod.weight.shape[0 if isinstance(mod, nn.ConvTranspose2d) else 1]
+                    fan_in *= mod.weight[0, 0].numel() if mod.weight.dim() == 4 else 1
+                    normal(mod.weight, (2.0 / fan_in) ** 0.5)
+                    normal(mod.bias, 0.1)
+                elif isinstance(mod, nn.BatchNorm2d):
+                    uniform(mod.weight, 0.5, 1.5)
+                    normal(mod.bias, 0.1)
+                    normal(mod.running_mean, 0.1)
+                    uniform(mod.running_var, 0.5, 1.5)
+            if hasattr(m, "reg"):
+                m.reg.reset_head()
+                normal(m.reg.fc2.weight, 2e-3)
+            m.eval()
+    return models
+
+
+def _on(model, device, dtype):
+    """A copy of ``model`` on ``device`` computing in ``dtype``."""
+    import copy
+
+    m = copy.deepcopy(model).to(device)
+    m.dtype = dtype
+    return m
+
+
+def _legacy_forward(model, x, template):
+    """(logits, theta or None, proj or None) of one legacy model."""
+    thetas = []
+    if not hasattr(model, "reg"):
+        return model(x), None, None
+    hook = model.reg.register_forward_hook(lambda m, i, o: thetas.append(o))
+    try:
+        logits, proj = model(x, template)
+    finally:
+        hook.remove()
+    return logits, thetas[0], proj
+
+
+def phase_legacy(dev, card):
+    """The legacy models (``models/legacy.py``) at 640x360: bf16 batch 8
+    through K2, K7-fwd's norm and (deconv) K3, every launch counted from 0
+    and on the tensor cores, ms a batch; f32 (TF32 off) CUDA against the CPU
+    on 2 frames (logits rtol 1e-3 / atol 2e-4, theta <= 2e-4, the
+    projection of the CPU's theta on the card within 1e-5 of the CPU's);
+    ``eval_net`` (4 classes, and 1 class through the dice path) and
+    ``eval_stn`` on two seeded batches, CUDA against the CPU, rtol 1e-3;
+    ``geometry/court.Warper`` (default device: the card) at 1280x720 against
+    the CPU, < 0.1 % of pixels apart."""
+    import torch
+
+    from sports_field_homography_tpu_torch.data.assets import open_court_template
+    from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_norm
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2
+    from sports_field_homography_tpu_torch.ops.warp import warp_nearest
+    from sports_field_homography_tpu_torch.train.evaluate import eval_net, eval_stn
+
+    w, h = LEGACY_WH
+    models = _legacy_models()
+    rng = np.random.default_rng(4)
+    frames = rng.integers(0, 256, (BATCH, h, w, 3), dtype=np.uint8)
+    template = torch.from_numpy(open_court_template(COURT_IMG, 4, size=LEGACY_WH)).float() / 4
+    # K1 is counted too (from 0, so that the route check holds); the legacy
+    # models do not launch it
+    kernels = {"conv3x3": conv3x3, "deconv2x2": deconv2x2, "bn_relu_norm": bn_relu_norm,
+               "warp_nearest": warp_nearest}
+    torch.backends.cudnn.allow_tf32 = True      # the bf16 CLIs' defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for name in ("unet", "UNetSTN", "CourtReconstruction"):
+        m = _on(models[name], dev, torch.bfloat16)
+        x = torch.from_numpy(frames).to(dev).float() / 255.0
+        tmpl = template.to(dev)
+        with torch.inference_mode():
+            launches, (logits, theta, proj) = _counted(
+                kernels, lambda: _legacy_forward(m, x, tmpl), f"legacy {name}")
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: _legacy_forward(m, x, tmpl), warmup=2, runs=5)
+        deconv = not m.bilinear
+        if launches.pop("warp_nearest") or launches["conv3x3"] <= 0 \
+                or launches["bn_relu_norm"] <= 0 or (launches["deconv2x2"] > 0) != deconv:
+            raise AssertionError(f"legacy {name}: launches {launches}: K2 and K7-fwd's norm "
+                                 f"must run, K3 {'must' if deconv else 'must not'}")
+        outs = [logits] + ([theta, proj] if theta is not None else [])
+        if not all(torch.isfinite(t.float()).all() for t in outs):
+            raise AssertionError(f"legacy {name}: non-finite bf16 outputs")
+        if theta is not None and float(theta.float().std(0).max()) <= 0:
+            raise AssertionError(f"legacy {name}: theta does not vary across frames")
+        rows.append(f"{name} ({'deconv' if deconv else 'bilinear'}) {ms:.2f} ms/batch, "
+                    f"launches {launches}")
+        del m
+    log(f"legacy: bf16 {w}x{h} batch {BATCH} (CUDA events, median of 5): " + "; ".join(rows)
+        + f" [{card}]")
+
+    # f32 (TF32 off): the card against the CPU's plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(frames[:LEGACY_PARITY_FRAMES]).float() / 255.0
+    rows = []
+    for name in ("unet", "UNetSTN", "CourtReconstruction"):
+        res, on = {}, {}
+        for device in ("cuda", "cpu"):
+            on[device] = _on(models[name], torch.device(device), torch.float32)
+            with torch.inference_mode():
+                n0 = conv3x3.launches
+                res[device] = [None if t is None else t.float().cpu() for t in
+                               _legacy_forward(on[device], x.to(device), template.to(device))]
+                if (conv3x3.launches > n0) != (device == "cuda"):
+                    raise AssertionError(f"legacy {name} f32 {device}: K2 launches wrong")
+        (lc, tc, pc), (lp, tp, pp) = res["cuda"], res["cpu"]
+        d_logits = float((lc - lp).abs().max())
+        if not torch.allclose(lc, lp, rtol=1e-3, atol=2e-4):
+            raise AssertionError(f"legacy {name} f32: logits CUDA vs CPU max abs {d_logits:.3e}")
+        row = f"{name}: logits max abs {d_logits:.3e}"
+        if tc is not None:
+            d_theta = float((tc - tp).abs().max())
+            shape = (-1, 2, 3) if name == "UNetSTN" else (-1, 3, 3)
+            with torch.inference_mode():    # the CPU's theta projected on the card
+                proj = on["cuda"].project(tp.reshape(shape).to(dev), template.to(dev)).cpu()
+            d_proj = float((proj - pp).abs().max())
+            row += f", theta {d_theta:.3e}, projection of the CPU's theta {d_proj:.3e}"
+            if not (d_theta <= 2e-4 and d_proj <= 1e-5):
+                raise AssertionError(f"legacy {name} f32: theta {d_theta:.3e} (2e-4) or the "
+                                     f"projection {d_proj:.3e} (1e-5) beyond its bound")
+        rows.append(row)
+    log(f"legacy f32 CUDA vs CPU, {LEGACY_PARITY_FRAMES} frames (bounds: logits rtol 1e-3 / "
+        "atol 2e-4, theta 2e-4, projection 1e-5): " + "; ".join(rows))
+
+    # the legacy scores on two seeded batches
+    batches = [{"image": rng.integers(0, 256, (LEGACY_PARITY_FRAMES, h, w, 3), dtype=np.uint8),
+                "mask": rng.integers(0, 4, (LEGACY_PARITY_FRAMES, h, w)).astype(np.int64)}
+               for _ in range(2)]
+    one_class = [dict(b, mask=(b["mask"] > 1).astype(np.int64)) for b in batches]
+    scores = {}
+    for device in ("cuda", "cpu"):
+        d = torch.device(device)
+        n0 = conv3x3.launches
+        scores[device] = {
+            "eval_net 4 classes": eval_net(_on(models["unet"], d, torch.float32), batches, 4),
+            "eval_net 1 class": eval_net(_on(models["unet 1 class"], d, torch.float32),
+                                         one_class, 1),
+            "eval_stn UNetSTN": eval_stn(_on(models["UNetSTN"], d, torch.float32), batches,
+                                         template.to(d), 4),
+            "eval_stn CourtReconstruction": eval_stn(
+                _on(models["CourtReconstruction"], d, torch.float32), batches,
+                template.to(d), 4)}
+        if (conv3x3.launches > n0) != (device == "cuda"):
+            raise AssertionError(f"legacy eval {device}: K2 launches wrong")
+    rows = []
+    for what, want in scores["cpu"].items():
+        for key, v in want.items():
+            got = scores["cuda"][what][key]
+            rows.append(f"{what} {key} {got:.6f} (CPU {v:.6f})")
+            if not (np.isfinite(got) and abs(got - v) <= 1e-3 * abs(v)):
+                raise AssertionError(f"legacy {what}: {key} CUDA {got} vs CPU {v} (rtol 1e-3)")
+    log("legacy eval f32, 2 batches of 2: " + "; ".join(rows))
+    torch.backends.cudnn.allow_tf32 = True
+
+    # geometry/court.Warper: its default device is the card
+    from sports_field_homography_tpu_torch.geometry.court import Warper
+
+    img = np.stack([template.numpy(), rng.random((h, w), dtype=np.float32),
+                    np.linspace(0, 1, w, dtype=np.float32)[None].repeat(h, 0)], axis=-1)
+    theta = np.array([[1.4, 0.1, 0.05], [0.02, 2.2, 0.6], [0.01, 0.9, 1.0]])
+    card_w, host_w = Warper(VIDEO_WH), Warper(VIDEO_WH, cuda=False)
+    if card_w.device.type != "cuda":
+        raise AssertionError("legacy: Warper's default device is not the card")
+    got, want = card_w.warp(theta, img), host_w.warp(theta, img)
+    differ = float(np.any(got != want, axis=-1).mean())
+    log(f"legacy: geometry/court.Warper {VIDEO_WH[0]}x{VIDEO_WH[1]} of a 3-channel float image "
+        f"on the card against the CPU: {differ * 100:.4f} % of pixels differ (bound 0.1 %)")
+    if got.shape != (VIDEO_WH[1], VIDEO_WH[0], 3) or differ >= 1e-3 or not (got[..., 0] > 0).any():
+        raise AssertionError("legacy: Warper on the card disagrees with the CPU")
+
+
+PITCH_IMG = os.path.join(REPO, "assets", "pitch_mask_nc4_hd.png")
+PITCH_POI = os.path.join(REPO, "assets", "template_pitch_points.json")
+PITCH_FLIP = os.path.join(REPO, "assets", "pitch-poi-flip-mapping.json")
+PITCH_WH = (640, 360)
+
+
+def phase_pitch(dev, card, work):
+    """The soccer-pitch variant (BASELINE config #5) at 640x360: a seeded
+    synthetic set rendered from the RGBA class-colour pitch (converted to a
+    label template by ``data/synthetic.py``, 33 points), the train CLI for
+    3 steps at batch 8 with the hflip and the pitch's flip map, every
+    training kernel launched on its fast route, the predict CLI on the
+    validation frames from its checkpoint, and f32 (TF32 off) CUDA against
+    the CPU on 2 frames: unit-normalized theta <= 2e-4, poi <= 5e-4, score
+    <= 1e-3."""
+    import torch
+
+    from sports_field_homography_tpu_torch.cli import predict as predict_cli
+    from sports_field_homography_tpu_torch.cli.engine import build_model
+    from sports_field_homography_tpu_torch.data.dataset import BasicDataset
+    from sports_field_homography_tpu_torch.data.png import read_png
+    from sports_field_homography_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    torch.backends.cudnn.allow_tf32 = True      # the bf16 CLI's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = os.path.join(work, "pitch")
+    t0 = time.perf_counter()
+    tmpl = write_synthetic_dataset(data, 3 * BATCH, BATCH, PITCH_IMG, PITCH_POI,
+                                   size=PITCH_WH, seed=1)
+    labels = read_png(tmpl)
+    if os.path.basename(tmpl) != "court_template_onehot.png" or \
+            set(np.unique(labels)) != {0, 1, 2, 3}:
+        raise AssertionError(f"pitch: the colour mask was not converted to labels 0..3: {tmpl}")
+    log(f"pitch: wrote {4 * BATCH} synthetic {PITCH_WH[0]}x{PITCH_WH[1]} samples from the converted "
+        f"{labels.shape[1]}x{labels.shape[0]} template in {time.perf_counter() - t0:.1f} s")
+    size = list(PITCH_WH)
+    conf = _train_conf(work, data, "pitch", court_img=tmpl, court_poi=PITCH_POI,
+                       aug={"geometric": {"hflip": 0.5, "poi_flip_map": PITCH_FLIP}},
+                       target_size=size, unet_size=size, warp_size=size, court_size=size)
+    t0 = time.perf_counter()
+    hist, launches = train_cli_counted(conf, "train pitch")
+    secs = time.perf_counter() - t0
+    steps = hist["steps"]
+    if len(steps) != 3 or len(hist["validations"]) != 1:
+        raise AssertionError(f"train pitch: {len(steps)} steps and "
+                             f"{len(hist['validations'])} validations, expected 3 and 1")
+    if not all(np.isfinite(v) for st in steps + hist["validations"] for v in st.values()):
+        raise AssertionError(f"train pitch: a non-finite loss or score: {hist}")
+    log(f"train pitch: losses " + "; ".join(", ".join(f"{k} {v:.5f}" for k, v in st.items())
+                                           for st in steps)
+        + f"; validation {json.dumps(hist['validations'][0])}; CLI total {secs:.1f} s [{card}]")
+
+    ckpt = os.path.join(hist["cp_dir"], "CP_epoch1.pth")
+    frames = os.path.join(data, "frames", "val_game")
+    dst = os.path.join(work, "pitch_predict")
+    stats = predict_cli.process(["--img_dir", frames, "--load", ckpt, "--dst_dir", dst,
+                                 "--req_outputs", "theta,poi,consistency", "--batchsize",
+                                 str(BATCH), "--court_img", tmpl, "--court_poi", PITCH_POI])
+    with open(os.path.join(dst, "val_game_court.json")) as f:
+        out = json.load(f)
+    out.pop("model")
+    poi = np.array([r["poi"] for r in out.values()])
+    if len(out) != BATCH or poi.shape != (BATCH, 33, 2) or not np.isfinite(poi).all() or \
+            not all(np.isfinite(r["score"]) and np.isfinite(r["theta"]).all()
+                    for r in out.values()):
+        raise AssertionError(f"predict pitch: {len(out)} records, poi {poi.shape}; expected "
+                             f"{BATCH} finite records of 33 points")
+    log(f"predict pitch: {len(out)} finite records of 33 points from {ckpt}; CLI loop "
+        f"{stats['frames'] / stats['seconds']:.1f} frames/s [{card}]")
+
+    class Args:
+        target_size = unet_size = warp_size = court_size = PITCH_WH
+        mask_classes = 4
+        use_unet = use_resnet = use_warper = True
+        unet_uv = unet_bilinear = False
+        resnet_name, resnet_input = "resnet34", "img+mask"
+        compute_dtype = "float32"
+        court_img, court_poi = tmpl, PITCH_POI
+
+    ds = BasicDataset(sorted(os.listdir(frames))[:2], frames, PITCH_WH)
+    x = torch.from_numpy(np.stack([ds[i]["image"] for i in range(2)])).float() / 255.0
+    res = {}
+    for device in ("cuda", "cpu"):
+        Args.device = device
+        b = build_model(Args, load=ckpt, fold_bn=True)
+        with torch.inference_mode():
+            p = b.model.predict(x.to(b.device), b.court_labels, b.value_table,
+                                court_poi=torch.from_numpy(b.court_poi).to(b.device))
+        res[device] = {k: p[k].float().cpu() for k in ("theta", "consist_score", "poi")}
+    gap = _output_gap(res["cuda"], res["cpu"])
+    # a trained head's theta is not near unit size: its scale carries no
+    # meaning (the homography is the same at any scale), so theta is
+    # compared unit-normalized, as docs/PARITY.md compares trained thetas
+    unit = {k: r["theta"].double() / r["theta"].double().flatten(1).norm(dim=1).view(-1, 1, 1, 1)
+            for k, r in res.items()}
+    d_unit = float((unit["cuda"] - unit["cpu"]).abs().max())
+    log(f"pitch f32 CUDA vs CPU, 2 frames: unit-normalized theta max abs {d_unit:.3e} (bound "
+        f"2e-4; raw theta {gap['theta']:.3e} at max |theta| "
+        f"{float(res['cpu']['theta'].abs().max()):.3f}), score {gap['consist_score']:.3e} "
+        f"(1e-3), poi {gap['poi']:.3e} (5e-4)")
+    if not (d_unit <= 2e-4 and gap["consist_score"] <= 1e-3 and gap["poi"] <= 5e-4):
+        raise AssertionError("pitch: f32 CUDA and CPU disagree beyond the bounds")
+    torch.backends.cudnn.allow_tf32 = True
+    return launches
+
+
+VIDEO_WH = (1280, 720)         # the clip's frames and the CLI's out_size
+VIDEO_TARGET = (640, 360)      # the flagship's input
+VIDEO_FRAMES = 16
+VIDEO_PARITY_FRAMES = 4
+VIDEO_OUTPUTS = "segm_mask,warp_mask,theta,poi,consistency,debug"
+
+
+def _write_clip(path, n, rng):
+    """``n`` seeded 1280x720 frames as MJPG in an .avi (OpenCV's own codec,
+    no FFmpeg backend needed): a smooth random pattern that moves, which
+    the codec keeps.  Returns the writer's seconds."""
+    import cv2
+
+    w, h = VIDEO_WH
+    base = rng.integers(0, 256, (h // 16, w // 16, 3), dtype=np.uint8)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 30, (w, h))
+    if not wr.isOpened():
+        raise AssertionError(f"video: cv2.VideoWriter cannot open {path} for MJPG")
+    for i in range(n):
+        wr.write(cv2.resize(np.roll(base, i, axis=1), (w, h), interpolation=cv2.INTER_CUBIC))
+    wr.release()
+    return time.perf_counter() - t0
+
+
+def _records(path):
+    with open(path) as f:
+        out = json.load(f)
+    out.pop("model")
+    return out
+
+
+def phase_video_viz(dev, card, work):
+    """BASELINE config #3 on the card, where cv2 imports: a clip of 16
+    seeded 1280x720 frames (MJPG .avi) through the predict CLI with
+    ``--video_path``, the debug renders and pickled segm masks, on phase
+    predict's .pth (K1 once a batch on the full 1280x720 grid, every launch
+    on its fast route); the f32 CUDA records of the first 4 frames against
+    the CPU run's (theta 2e-4, score 1e-3, poi 5e-4 near the frame and
+    relative to their distance beyond); the decode pool's and
+    the writer's seconds; then ``cli.viz_preds`` on those records, with the
+    threshold at the median score so that half the frames take the warp:
+    K1 once a warped frame on the card, renders equal to the CPU's byte for
+    byte, ``--no_encode`` unless an ``ffmpeg`` binary is on PATH.  Without
+    cv2 it logs that it skipped."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        log("video and viz: skipped: cv2 does not import on this machine (the video source, "
+            "the debug renders and viz_preds need it)")
+        return None
+    import torch
+
+    from sports_field_homography_tpu_torch.cli import predict as predict_cli
+    from sports_field_homography_tpu_torch.cli import viz_preds
+    from sports_field_homography_tpu_torch.data.dataset import VideoDataset
+    from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_norm
+    from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+    from sports_field_homography_tpu_torch.ops.deconv import deconv2x2
+    from sports_field_homography_tpu_torch.ops.warp import warp_nearest
+
+    torch.backends.cudnn.allow_tf32 = True      # the bf16 CLI's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    root = os.path.join(work, "video")
+    clip = os.path.join(root, "vgame", "clip.avi")
+    write_s = _write_clip(clip, VIDEO_FRAMES, rng)
+    short = os.path.join(root, "vgame4", "clip.avi")
+    _write_clip(short, VIDEO_PARITY_FRAMES, np.random.default_rng(5))
+    decode = {}
+    for workers in (1, 4):
+        ds = VideoDataset(clip, target_size=VIDEO_TARGET, keep_orig_img=True,
+                          decode_workers=workers)
+        t0 = time.perf_counter()
+        got = [ds[i] for i in range(len(ds))]
+        decode[workers] = time.perf_counter() - t0
+        ds.close()
+        if len(got) != VIDEO_FRAMES or got[-1]["orig_img"].shape != (VIDEO_WH[1], VIDEO_WH[0], 3):
+            raise AssertionError(f"video: decoded {len(got)} frames, expected {VIDEO_FRAMES}")
+    log(f"video: wrote {VIDEO_FRAMES} {VIDEO_WH[0]}x{VIDEO_WH[1]} MJPG frames in {write_s:.2f} s "
+        f"({write_s * 1000 / VIDEO_FRAMES:.1f} ms a frame); decoded and resized to "
+        f"{VIDEO_TARGET[0]}x{VIDEO_TARGET[1]} "
+        f"sequentially in {decode[1]:.2f} s, by _VideoDecodePool (4 threads) in "
+        f"{decode[4]:.2f} s ({decode[4] * 1000 / VIDEO_FRAMES:.1f} ms a frame)")
+
+    ckpt = os.path.join(work, "flagship", "model.pth")
+    base = ["--load", ckpt, "--court_img", COURT_IMG, "--court_poi", COURT_POI,
+            "--out_size", str(VIDEO_WH[0]), str(VIDEO_WH[1])]
+    dst = os.path.join(root, "out")
+    kernels = {"warp_nearest": warp_nearest, "conv3x3": conv3x3, "deconv2x2": deconv2x2,
+               "bn_relu_norm": bn_relu_norm}
+    with recording_k1_grids() as grids:
+        launches, stats = _counted(kernels, lambda: predict_cli.process(
+            base + ["--video_path", clip, "--dst_dir", dst, "--req_outputs", VIDEO_OUTPUTS,
+                    "--batchsize", str(BATCH), "--video_workers", "4"]), "video")
+    if grids != [(VIDEO_WH[::-1], None)] * (VIDEO_FRAMES // BATCH) or \
+            any(n <= 0 for n in launches.values()):
+        raise AssertionError(f"video: K1 grids {grids}, launches {launches}: expected K1 once "
+                             "a batch on the full 1280x720 grid and every kernel launched")
+    recs = _records(os.path.join(dst, "vgame_court.json"))
+    debug = sorted(os.listdir(os.path.join(dst, "court", "debug")))
+    masks, n_masks = _read_pickle_masks(os.path.join(dst, "court", "segm_mask", "data.pkl"))
+    names = [f"{i:06d}" for i in range(VIDEO_FRAMES)]
+    if sorted(recs) != names or debug != [n + ".jpeg" for n in names] or \
+            sorted(masks) != names or n_masks != VIDEO_FRAMES:
+        raise AssertionError(f"video: {len(recs)} records, {len(debug)} debug renders, "
+                             f"{n_masks} masks; expected {VIDEO_FRAMES} of each")
+    shot = cv2.imread(os.path.join(dst, "court", "debug", debug[0]))
+    if shot is None or shot.shape != (VIDEO_WH[1], VIDEO_WH[0], 3) or \
+            masks[names[0]].shape != VIDEO_WH[::-1]:
+        raise AssertionError("video: a debug render or a mask is not 1280x720")
+    if not all(np.isfinite(r["theta"]).all() and np.isfinite(r["poi"]).all()
+               and np.isfinite(r["score"]) for r in recs.values()):
+        raise AssertionError("video: non-finite records")
+    log(f"video: predict CLI bf16 over the clip: {stats['frames']} frames, launches "
+        f"{launches}, K1 on {sorted(set(grids))}; {stats['frames'] / stats['seconds']:.1f} "
+        f"frames/s with debug and masks, writer busy {stats['writer_seconds']:.2f} of "
+        f"{stats['seconds']:.2f} s ({stats['writer_seconds'] * 1000 / stats['frames']:.1f} "
+        f"ms a frame) [{card}]")
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        d = os.path.join(root, f"f32_{device}")
+        predict_cli.process(base + ["--video_path", short, "--dst_dir", d, "--req_outputs",
+                                    "theta,poi,consistency", "--batchsize", "2",
+                                    "--compute_dtype", "float32", "--device", device])
+        out[device] = _records(os.path.join(d, "vgame4_court.json"))
+    gaps = {k: max(float(np.abs(np.asarray(out["cuda"][n][k]) - np.asarray(out["cpu"][n][k])
+                                ).max()) for n in out["cpu"]) for k in ("theta", "score")}
+    # the seeded head sends a few points tens of frame widths out, near the
+    # horizon, where the perspective divide magnifies rounding: those are
+    # held relative to their distance, the points within a frame of the
+    # frame absolutely
+    cpu = np.stack([np.asarray(out["cpu"][n]["poi"]) for n in sorted(out["cpu"])])
+    cuda = np.stack([np.asarray(out["cuda"][n]["poi"]) for n in sorted(out["cpu"])])
+    near = (np.abs(cpu - 0.5) <= 1.5).all(-1)
+    d = np.abs(cuda - cpu).max(-1)
+    gaps["poi"] = float(d[near].max())
+    gaps["poi far"] = float((d[~near] / np.abs(cpu[~near]).max(-1)).max()) if (~near).any() \
+        else 0.0
+    log(f"video f32 CUDA vs CPU, {VIDEO_PARITY_FRAMES} frames: theta max abs "
+        f"{gaps['theta']:.3e} (bound 2e-4), score {gaps['score']:.3e} (1e-3 plus the JSON's "
+        f"rounding), poi within a frame of the frame {gaps['poi']:.3e} (5e-4), the "
+        f"{int((~near).sum())} farther points (up to {float(np.abs(cpu).max()):.1f} frame "
+        f"widths) {gaps['poi far']:.3e} of their distance (5e-4)")
+    if sorted(out["cuda"]) != sorted(out["cpu"]) or len(out["cpu"]) != VIDEO_PARITY_FRAMES \
+            or not (gaps["theta"] <= 2e-4 and gaps["score"] <= 1e-3 + 1e-6
+                    and gaps["poi"] <= 5e-4 and gaps["poi far"] <= 5e-4):
+        raise AssertionError("video: f32 CUDA and CPU records disagree beyond the bounds")
+    torch.backends.cudnn.allow_tf32 = True
+
+    # viz_preds over the bf16 records, half the frames below the threshold
+    scores = sorted(r["score"] for r in recs.values())
+    lo, hi = scores[VIDEO_FRAMES // 2 - 1], scores[VIDEO_FRAMES // 2]
+    threshold = (lo + hi) / 2 if hi > lo else lo + 1e-6
+    encode = shutil.which("ffmpeg") is not None
+    argv = ["--video_path", clip, "--preds_path", os.path.join(dst, "vgame_court.json"),
+            "--masks_path", os.path.join(dst, "court", "segm_mask", "data.pkl"),
+            "--field_path", COURT_IMG, "--score_threshold", repr(threshold)]
+    renders, viz_s = {}, {}
+    for device in ("cuda", "cpu"):
+        d = os.path.join(root, f"viz_{device}")
+        warp_nearest.launches = warp_nearest.vec_launches = 0
+        t0 = time.perf_counter()
+        warped = viz_preds.main(argv + ["--dst_dir", d, "--device", device, "--no_encode"])
+        viz_s[device] = time.perf_counter() - t0
+        n_k1 = warp_nearest.launches
+        if device == "cuda" and not (0 < warped and n_k1 == warped
+                                     and warp_nearest.vec_launches == n_k1):
+            raise AssertionError(f"viz: {warped} frames warped, K1 launched {n_k1} times "
+                                 f"({warp_nearest.vec_launches} on the float4 route)")
+        if device == "cpu" and n_k1:
+            raise AssertionError("viz --device cpu launched K1")
+        chunk = os.path.join(d, "_temp", "_chunk0")
+        renders[device] = {f: open(os.path.join(chunk, f), "rb").read()
+                           for f in sorted(os.listdir(chunk))}
+    if sorted(renders["cuda"]) != [n + ".png" for n in names] or \
+            any(renders["cpu"][f] != data for f, data in renders["cuda"].items()):
+        raise AssertionError("viz: the CUDA renders differ from the CPU renders")
+    log(f"viz: {warped} of {VIDEO_FRAMES} frames below the threshold {threshold:.6f} took K1 "
+        f"({warped} launches, float4 route) at 1280x720; CUDA renders equal the CPU's byte for "
+        f"byte; {viz_s['cuda'] * 1000 / VIDEO_FRAMES:.1f} ms a frame on the card, "
+        f"{viz_s['cpu'] * 1000 / VIDEO_FRAMES:.1f} on the CPU (decode, overlay, PNG write) "
+        f"[{card}]")
+    if encode:
+        d = os.path.join(root, "viz_encoded")
+        viz_preds.main(argv + ["--dst_dir", d])
+        if not os.path.isfile(os.path.join(d, "output.mp4")):
+            raise AssertionError("viz: ffmpeg is on PATH but no output.mp4 was written")
+        log("viz: ffmpeg encoded output.mp4")
+    else:
+        log("viz: no ffmpeg binary on PATH: rendered with --no_encode only")
+    return launches
+
+
 KERNEL_TABLE = [   # name, source, the TPU kernel it replaces
     ("warp_nearest", "warp_nearest.cu", "sports_field_homography_tpu/ops/warp_pallas.py:96"),
     ("conv3x3", "conv3x3_sm90.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:151"),
@@ -3181,6 +3730,9 @@ def main() -> int:
     run("predict resnet50", phase_predict_resnet50, dev, card)
     run("serve", phase_serve, dev, card, work)
     run("serve artifact", phase_serve_artifact, dev, card, work)
+    run("legacy", phase_legacy, dev, card)
+    run("pitch", phase_pitch, dev, card, work)
+    run("video and viz", phase_video_viz, dev, card, work)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")
 

@@ -2,9 +2,10 @@
 
 A jax-free port of ``compat/torch_export.export_state_dict``: walks the
 flax variable tree of the JAX ``Reconstructor`` (nested dicts of arrays,
-``{"params": ..., "batch_stats": ...}``) and emits the reference-keyed
-tensors the port's modules carry, so JAX weights load with
-``load_state_dict(..., strict=True)``.
+``{"params": ..., "batch_stats": ...}``) or of a legacy model
+(``models/legacy.py``: the UNet under ``core``, the head under ``reg``)
+and emits the reference-keyed tensors the port's modules carry, so JAX
+weights load with ``load_state_dict(..., strict=True)``.
 
 Layouts: conv HWIO -> OIHW; transposed conv (I, H, W, O) -> IOHW;
 linear (in, out) -> (out, in); BatchNorm scale/bias/mean/var ->
@@ -67,11 +68,21 @@ def _double_conv(out, variables, path, name):
     _bn(out, variables, path + ("bn2",), f"{name}.4")
 
 
+def _dense(out, variables, path, name):
+    p = _get(variables, ("params",) + path)
+    if p is not None:
+        out[name + ".weight"] = _leaf(p["kernel"]).T
+        out[name + ".bias"] = _leaf(p["bias"])
+
+
 def _arrays(variables: Dict) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     params = variables.get("params", {})
-    if "unet" in params:
-        u = ("unet",)
+    # the Reconstructor's UNet is "unet", the legacy models' "core"
+    for scope in ("unet", "core"):
+        if scope not in params:
+            continue
+        u = (scope,)
         _double_conv(out, variables, u + ("inc",), "inc.double_conv")
         for i in range(1, 5):
             _double_conv(out, variables, u + (f"down{i}", "conv"),
@@ -85,6 +96,10 @@ def _arrays(variables: Dict) -> Dict[str, np.ndarray]:
                          f"up{i}.conv.double_conv")
         _conv(out, variables, u + ("outc", "conv"), "outc.conv")
         _conv(out, variables, u + ("outuv", "conv"), "outuv.conv")
+    if "reg" in params:         # the legacy models' regression head
+        _conv(out, variables, ("reg", "conv_reg"), "reg.conv_reg")
+        _dense(out, variables, ("reg", "fc1"), "reg.fc1")
+        _dense(out, variables, ("reg", "fc2"), "reg.fc2")
     if "resnet_reg" in params:
         r = ("resnet_reg",)
         _conv(out, variables, r + ("conv0",), "resnet_reg.conv0")
@@ -99,10 +114,7 @@ def _arrays(variables: Dict) -> Dict[str, np.ndarray]:
                 _bn(out, variables, r + (fname, f"bn{ci}"), f"{tname}.bn{ci}")
             _conv(out, variables, r + (fname, "downsample_conv"), f"{tname}.downsample.0")
             _bn(out, variables, r + (fname, "downsample_bn"), f"{tname}.downsample.1")
-        reg = _get(variables, ("params",) + r + ("reg",))
-        if reg is not None:
-            out["resnet_reg.reg.weight"] = _leaf(reg["kernel"]).T
-            out["resnet_reg.reg.bias"] = _leaf(reg["bias"])
+        _dense(out, variables, r + ("reg",), "resnet_reg.reg")
     return out
 
 

@@ -7,6 +7,12 @@ frames, L-mode label masks (the template nearest-warped by theta, so the
 ground truth is exact), and annotations with the projected court points
 (``poi``: (N, 3) rows of x, y in [0, 1] and a visibility flag) and
 ``reproj_mse``.  The games are ``train_game`` and ``val_game``.
+
+A court image drawn in class colours (the soccer pitch's
+``assets/pitch_mask_nc4_hd.png``, RGBA) is first converted to a label
+template by ``prep/preparation.MASK_CLASS_MAPPINGS``, as the JAX
+package's script does, and written to ``<dst>/court_template_onehot.png``:
+the train and predict CLIs take that file as ``court_img``.
 """
 from __future__ import annotations
 
@@ -19,10 +25,15 @@ import torch
 from ..geometry.court import load_court_poi
 from ..geometry.homography import transform_poi
 from ..ops.warp import warp_nearest_plain
+from ..prep.preparation import MASK_CLASS_MAPPINGS
 from .assets import open_court_template
+from .image import read_image
 from .png import write_png
 
-__all__ = ["write_synthetic_dataset", "synthetic_samples", "sample_theta"]
+__all__ = ["write_synthetic_dataset", "synthetic_samples", "sample_theta",
+           "court_labels_from_colors", "label_template"]
+
+ONEHOT_NAME = "court_template_onehot.png"
 
 BASE_THETA = np.array([[1.4, 0.1, 0.05], [0.02, 2.2, 0.6], [0.01, 0.9, 1.0]])
 # class colours of the rendered frames (background, floor, lines, paint)
@@ -34,6 +45,52 @@ def sample_theta(rng: np.random.RandomState) -> np.ndarray:
     n = rng.randn(3, 3) * np.array([[.15, .05, .1], [.05, .3, .15],
                                     [.005, .1, .05]])
     return (BASE_THETA + n).astype(np.float32)
+
+
+def _rgb(arr: np.ndarray) -> np.ndarray:
+    """An 8-bit L, LA, RGB or RGBA image as RGB, as Pillow's
+    ``convert("RGB")`` gives it (gray replicated, alpha dropped)."""
+    if arr.ndim == 2:
+        return np.repeat(arr[..., None], 3, axis=2)
+    if arr.shape[2] == 2:
+        return np.repeat(arr[..., :1], 3, axis=2)
+    return arr[..., :3]
+
+
+def court_labels_from_colors(court_img: str, classes: int = 4):
+    """The court image's (H, W) uint8 labels (read with Pillow where it is
+    installed, else ``data/png.py``) and whether it was drawn in
+    class colours: an image with more distinct colours than classes, or a
+    channel range above the class count, maps each colour of
+    ``MASK_CLASS_MAPPINGS[classes]`` to its class and the rest to 0; any
+    other image is already label-coded (its first channel)."""
+    arr = read_image(court_img)
+    raw = _rgb(arr)
+    if arr.ndim == 2:           # gray: its colours are its values
+        n_colors = int((np.bincount(arr.ravel(), minlength=256) > 0).sum())
+    else:
+        codes = raw.astype(np.int32)
+        n_colors = len(np.unique((codes[..., 0] << 16) | (codes[..., 1] << 8) | codes[..., 2]))
+    if n_colors > classes or np.ptp(raw) > classes:
+        labels = np.zeros(raw.shape[:2], np.uint8)
+        for cid, color in MASK_CLASS_MAPPINGS[classes].items():
+            labels[np.all(raw == color, axis=2)] = cid
+        if labels.max() == 0:
+            raise ValueError(f"no mapped class colors found in {court_img}")
+        return labels, True
+    return (arr if arr.ndim == 2 else arr[..., 0]), False
+
+
+def label_template(court_img: str, classes: int, dst: str) -> str:
+    """The path of a label-coded template for ``court_img``: itself, or
+    its conversion from class colours written to ``dst/court_template_onehot.png``."""
+    labels, converted = court_labels_from_colors(court_img, classes)
+    if not converted:
+        return court_img
+    os.makedirs(dst, exist_ok=True)
+    path = os.path.join(dst, ONEHOT_NAME)
+    write_png(path, labels)
+    return path
 
 
 def synthetic_samples(n: int, court_img: str, court_poi: str, size=(640, 360),
@@ -60,8 +117,10 @@ def synthetic_samples(n: int, court_img: str, court_poi: str, size=(640, 360),
 
 def write_synthetic_dataset(dst: str, n_train: int, n_val: int, court_img: str,
                             court_poi: str, size=(640, 360), classes: int = 4,
-                            seed: int = 0) -> None:
-    """Write ``n_train`` + ``n_val`` samples of ``size`` (W, H) to ``dst``."""
+                            seed: int = 0) -> str:
+    """Write ``n_train`` + ``n_val`` samples of ``size`` (W, H) to ``dst``;
+    returns the label template they were rendered from (``label_template``)."""
+    court_img = label_template(court_img, classes, dst)
     rng = np.random.RandomState(seed)
     idx = 0
     for game, count in (("train_game", n_train), ("val_game", n_val)):
@@ -78,3 +137,4 @@ def write_synthetic_dataset(dst: str, n_train: int, n_val: int, court_img: str,
             with open(os.path.join(dst, "anno", game, name + ".json"), "w") as f:
                 json.dump({"poi": anno[i].tolist(), "reproj_mse": 0.0001}, f)
             idx += 1
+    return court_img

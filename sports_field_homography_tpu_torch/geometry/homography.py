@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["transform_points", "inverse_3x3", "transform_poi",
-           "normalize_points", "denormalize_points"]
+           "normalize_points", "denormalize_points", "rescale_theta"]
 
 
 _EPS = 1e-8
@@ -86,3 +86,15 @@ def denormalize_points(points: torch.Tensor, size) -> torch.Tensor:
     """[0, 1] coordinates -> pixels; ``size`` is (W, H)."""
     return points * torch.tensor([float(size[0]), float(size[1])],
                                  dtype=points.dtype, device=points.device)
+
+
+def rescale_theta(theta: torch.Tensor, src_size, dst_size) -> torch.Tensor:
+    """Rescale a pixel-space homography between image resolutions:
+    ``S_dst @ theta @ S_src^-1`` with per-axis scales, in theta's dtype.
+    Sizes are (W, H)."""
+    opts = dict(dtype=theta.dtype, device=theta.device)
+    dst = torch.tensor([[float(dst_size[0]), 0.0, 0.0], [0.0, float(dst_size[1]), 0.0],
+                        [0.0, 0.0, 1.0]], **opts)
+    src_inv = torch.tensor([[1.0 / src_size[0], 0.0, 0.0], [0.0, 1.0 / src_size[1], 0.0],
+                            [0.0, 0.0, 1.0]], **opts)
+    return dst @ theta @ src_inv

@@ -15,7 +15,7 @@ from ..ops.resize import nearest_index
 from .homography import transform_points
 
 __all__ = ["normalized_grid", "warp_grid", "subsampled_warp_grid",
-           "warp_bilinear", "_unnormalize"]
+           "warp_bilinear", "sample_bilinear", "warp_nearest_image", "_unnormalize"]
 
 
 def _f32(v: float) -> float:
@@ -76,8 +76,9 @@ def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
 
 def warp_bilinear(template: torch.Tensor, theta: torch.Tensor,
                   out_hw) -> torch.Tensor:
-    """Bilinear homography warp of a (Ht, Wt) float template: (B, Ho, Wo),
-    zero outside it, differentiable in theta.
+    """Bilinear homography warp of a (Ht, Wt) float template, or of one
+    (B, Ht, Wt) template per sample: (B, Ho, Wo), zero outside it,
+    differentiable in theta.
 
     ``grid_sample(mode='bilinear', padding_mode='zeros',
     align_corners=False)`` over the ``warp_grid`` (what the reference
@@ -93,20 +94,57 @@ def warp_bilinear(template: torch.Tensor, theta: torch.Tensor,
     """
     if theta.dim() == 4:
         theta = theta[:, 0]
-    ht, wt = template.shape
     grid = warp_grid(theta, *out_hw)
+    return sample_bilinear(template, grid)
+
+
+def sample_bilinear(template: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """``grid_sample(mode='bilinear', padding_mode='zeros',
+    align_corners=False)`` of a (Ht, Wt) float template, or of one
+    (B, Ht, Wt) template per sample, at the (B, Ho, Wo, 2) normalized
+    (x, y) of ``grid``: (B, Ho, Wo), zero outside the template.  Four
+    gathers and two lerps, each operation rounded on its own, in the JAX
+    package's order (``warp_bilinear`` says why the order matters); the
+    CPU and CUDA give the same bits."""
+    ht, wt = template.shape[-2:]
     u = _unnormalize(grid[..., 0], wt)
     v = _unnormalize(grid[..., 1], ht)
     u0, v0 = torch.floor(u), torch.floor(v)
     tx, ty = u - u0, v - v0
     flat = template.to(grid.dtype).reshape(-1)
     zero = torch.zeros((), dtype=grid.dtype, device=grid.device)
+    # each sample's own template starts ht * wt further on
+    base = (0 if template.dim() == 2 else
+            torch.arange(grid.shape[0], device=grid.device).view(-1, 1, 1) * (ht * wt))
 
     def corner(row, col):
         valid = (col >= 0) & (col < wt) & (row >= 0) & (row < ht)
-        idx = row.clamp(0, ht - 1).long() * wt + col.clamp(0, wt - 1).long()
+        idx = row.clamp(0, ht - 1).long() * wt + col.clamp(0, wt - 1).long() + base
         return torch.where(valid, flat[idx], zero)
 
     top = corner(v0, u0) * (1.0 - tx) + corner(v0, u0 + 1.0) * tx
     bot = corner(v0 + 1.0, u0) * (1.0 - tx) + corner(v0 + 1.0, u0 + 1.0) * tx
     return top * (1.0 - ty) + bot * ty
+
+
+def warp_nearest_image(img: torch.Tensor, theta: torch.Tensor, out_hw) -> torch.Tensor:
+    """Nearest homography warp of a (B, Ht, Wt, C) float image:
+    (B, Ho, Wo, C), 0 outside it.
+
+    ``grid_sample(mode='nearest', padding_mode='zeros',
+    align_corners=False)`` over the ``warp_grid``, as the JAX package's
+    ``warp_homography(mode='nearest')``: coordinates rounded half to even,
+    then one gather.  Unlike K1 (``ops/warp.py``) it warps any float
+    image, not a uint8 label map.
+    """
+    if theta.dim() == 4:
+        theta = theta[:, 0]
+    b, ht, wt, c = img.shape
+    grid = warp_grid(theta.float(), *out_hw)
+    iu = torch.round(_unnormalize(grid[..., 0], wt))
+    iv = torch.round(_unnormalize(grid[..., 1], ht))
+    valid = (iu >= 0) & (iu < wt) & (iv >= 0) & (iv < ht)
+    lin = iv.clamp(0, ht - 1).long() * wt + iu.clamp(0, wt - 1).long()
+    lin = lin + torch.arange(b, device=img.device).view(-1, 1, 1) * (ht * wt)
+    out = img.float().reshape(-1, c)[lin]
+    return torch.where(valid[..., None], out, torch.zeros((), device=img.device))

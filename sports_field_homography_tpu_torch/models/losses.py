@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["cross_entropy_map", "focal_loss_map", "mse_map", "smooth_l1_map",
-           "reprojection_loss", "per_sample_weighted"]
+           "reprojection_loss", "per_sample_weighted", "dice_coeff"]
 
 
 def cross_entropy_map(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -67,3 +67,14 @@ def per_sample_weighted(loss_map: torch.Tensor, weights: torch.Tensor) -> torch.
     """Per-sample mean times per-sample weight, then the batch mean."""
     per_sample = loss_map.mean(dim=tuple(range(1, loss_map.dim())))
     return (per_sample * weights.reshape(-1).to(per_sample.dtype)).mean()
+
+
+def dice_coeff(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """Batch mean of the per-sample dice coefficient
+    ``(2 * sum(pred * target) + eps) / (sum(pred) + sum(target) + eps)``,
+    in f32 (the legacy ``eval_net``'s score for one class)."""
+    pred = pred.reshape(pred.shape[0], -1).float()
+    target = target.reshape(target.shape[0], -1).float()
+    inter = (pred * target).sum(dim=1)
+    union = pred.sum(dim=1) + target.sum(dim=1) + eps
+    return ((2.0 * inter + eps) / union).mean()

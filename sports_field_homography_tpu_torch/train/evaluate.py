@@ -10,16 +10,20 @@ val_reproj_px, val_consist_score.  The validation loaders of this port
 yield the true (ragged) tail batch, so every batch mean is over real
 samples, which is what the JAX package's ``valid``-masked means compute on
 its padded tail.
+
+``eval_net`` and ``eval_stn`` score the legacy models
+(``models/legacy.py``) as the JAX package's do.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterable
 
 import torch
 
-from ..models.losses import cross_entropy_map, mse_map, reprojection_loss
+from ..models.losses import cross_entropy_map, dice_coeff, mse_map, reprojection_loss
 
-__all__ = ["norm_img", "eval_step", "eval_reconstructor"]
+__all__ = ["norm_img", "eval_step", "eval_reconstructor", "eval_net", "eval_stn"]
 
 
 def norm_img(img: torch.Tensor) -> torch.Tensor:
@@ -128,3 +132,61 @@ def eval_reconstructor(model, batches: Iterable[Dict[str, torch.Tensor]],
             if key in last[1]:
                 result[name] = last[1][key].float().cpu().numpy()
     return result
+
+
+@contextlib.contextmanager
+def _eval_mode(model):
+    """Eval mode without autograd; the model's mode is restored after."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        model.train(was_training)
+
+
+def _on(model, batch, key) -> torch.Tensor:
+    """``batch[key]`` (a tensor or an array) on the model's device."""
+    return torch.as_tensor(batch[key]).to(next(model.parameters()).device)
+
+
+def eval_net(model, batches: Iterable[Dict], n_classes: int,
+             court_img=None, court_poi=None) -> Dict[str, float]:
+    """Legacy segmentation score of a ``models/legacy.UNet`` over batches:
+    the mean over batches of the mean cross entropy (``n_classes`` > 1),
+    or of the dice coefficient of ``sigmoid(logits) > 0.5`` against the
+    mask (one class).  ``court_img`` and ``court_poi`` are not used (the
+    JAX package's signature)."""
+    tot, n_val = 0.0, 0
+    with _eval_mode(model):
+        for batch in batches:
+            logits = model(norm_img(_on(model, batch, "image")))
+            mask = _on(model, batch, "mask")
+            if n_classes > 1:
+                tot += float(cross_entropy_map(logits, mask.long()).mean())
+            else:
+                pred = (torch.sigmoid(logits[..., 0].float()) > 0.5).float()
+                tot += float(dice_coeff(pred, mask.float()))
+            n_val += 1
+    return {"val_score": tot / max(n_val, 1)}
+
+
+def eval_stn(model, batches: Iterable[Dict], template, n_classes: int) -> Dict[str, float]:
+    """Legacy score of a ``UNetSTN`` or ``CourtReconstruction`` over
+    batches: means over batches of the mean cross entropy of the logits
+    and of the MSE of the projected template against ``mask / n_classes``,
+    and their sum."""
+    ce_score = mse_score = 0.0
+    n_val = 0
+    with _eval_mode(model):
+        for batch in batches:
+            logits, proj = model(norm_img(_on(model, batch, "image")), template)
+            mask = _on(model, batch, "mask").long()
+            ce_score += float(cross_entropy_map(logits, mask).mean())
+            mse_score += float(mse_map(proj, mask.float() / float(n_classes)).mean())
+            n_val += 1
+    n = max(n_val, 1)
+    return {"val_tot_score": (ce_score + mse_score) / n,
+            "val_ce_score": ce_score / n,
+            "val_mse_score": mse_score / n}
