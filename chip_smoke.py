@@ -89,6 +89,36 @@ its seconds:
    input, as dgrad), K3, K3-bwd, K5, K7-fwd (stats, norm) and K7-bwd
    launched, and that the written .pth loads into the predict CLI.  Prints
    ms/step and img/s at batch 8.
+5b. data parallel: two ranks share cuda:0 over gloo (NCCL refuses two
+   ranks on one card; the ranks find that out from the device UUIDs, and
+   the backend they took is checked).  First the split K7-bwd
+   (``bn_relu_bwd_sums``, then ``bn_relu_bwd_dx``: the halves a rank runs
+   around the all-reduce of the sums) against its plain versions at
+   360x640x64, batch 8 (f32 sums against exact sums over the same ReLU
+   mask, rel-L2 1e-5, dx 1e-4; bf16 1e-3 and 2e-2; bitwise repeat; the
+   16-byte route), timed beside ``torch.batch_norm_backward_reduce`` +
+   ``batch_norm_backward_elemt``.  Then the train CLI on both ranks
+   (``--num_hosts 2``, child processes): the flagship at 640x360, bf16,
+   global batch 16, 3 steps (the tail of 9 split 5 + 4), one validation;
+   each rank prints its launches: K2 (with stats, two-input, dgrad), K5,
+   K3, K3-bwd, K7-fwd stats and norm and both K7-bwd halves must launch,
+   the one-call K7-bwd and every plain K7-bwd version never (a rank
+   counts calls of the plain versions), every bf16 launch on its fast
+   route; both ranks log the same losses, rank 0 writes the checkpoint;
+   the steps' host ms and the part of each spent in all-reduces (each
+   timed after a device sync).  Then three rank pairs at once on the
+   card.  The harness (``python -m ...parallel.distributed --smoke``), f32
+   at 128x72, global batch 4, under cuDNN's deterministic algorithms: one
+   RMSprop step against the same step in one process on the card (one
+   parameter digest on both ranks; loss rtol 2e-3, gradients rel-L2 <
+   2e-2, running stats rtol 1e-3 / atol 1e-5: the CPU test's bounds; the
+   worst leaf, and the same one-process step with the ranks' rows swapped,
+   printed); the JAX package's multi-step contract: 4 SGD steps, one
+   digest on both ranks, a bit-equal resume from step 2's checkpoint, and
+   parameters within 1e-5 of one process; and the predict CLI on
+   32 frames over two hosts (K1, K2, K3 and K7-fwd's norm launched on
+   each), merged, against one process: theta <= 2e-4, score <= 1e-3, and
+   how many records are equal.
 6. train parity: one f32 train step (TF32 off) at 64x36, batch 3, on CUDA
    and on the CPU: per-loss values rtol 2e-3 / atol 1e-4 (consistency
    1e-2 / 1e-3), every gradient rel-L2 < 2e-2, with both runs' distance to
@@ -211,7 +241,8 @@ its seconds:
 
 The last two lines are JSON: the kernel table (each kernel's launches in
 the deconv predict run, K1's in the png full-output run, whose full grid
-its entry times, or for the training kernels the deconv train run;
+its entry times, or for the training kernels the deconv train run, the
+split K7-bwd's (``bn_relu_bwd_split``) rank 0's in the data-parallel run;
 for the f32 SIMT routes ``conv3x3_f32`` / ``deconv2x2_f32`` and
 ``wgrad3x3_f32`` / ``deconv2x2_backward_f32`` the deconv predict's and
 train step's f32 parity runs; its error, times and bound),
@@ -1953,6 +1984,346 @@ def phase_train(dev, card, work, bilinear=False):
     return launches, hist["cp_dir"], data
 
 
+# A data-parallel rank: the train or predict CLI in a child process, with
+# every kernel's counts, the all-reduces' host seconds (each after a device
+# sync, so only the collective itself is timed) and any call of a plain
+# K7-bwd version, printed as one DP_COUNTS line.
+DP_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from sports_field_homography_tpu_torch.ops import bn_relu_bwd as k7b
+from sports_field_homography_tpu_torch.ops.bn_relu import bn_relu_norm, bn_relu_stats
+from sports_field_homography_tpu_torch.ops.conv3x3 import conv3x3
+from sports_field_homography_tpu_torch.ops.deconv import deconv2x2, deconv2x2_backward
+from sports_field_homography_tpu_torch.ops.warp import warp_nearest
+from sports_field_homography_tpu_torch.ops.wgrad3x3 import wgrad3x3
+
+reduce = {"calls": 0, "seconds": 0.0, "bytes": 0}
+all_reduce = dist.all_reduce
+
+def timed_all_reduce(t, *a, **k):
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    out = all_reduce(t, *a, **k)
+    reduce["seconds"] += time.perf_counter() - t0
+    reduce["calls"] += 1
+    reduce["bytes"] += t.numel() * t.element_size()
+    return out
+
+dist.all_reduce = timed_all_reduce
+plain = {"calls": 0}
+for name in ("bn_relu_bwd_plain", "bn_relu_bwd_sums_plain", "bn_relu_bwd_dx_plain"):
+    def counted(*a, _f=getattr(k7b, name), **k):
+        plain["calls"] += 1
+        return _f(*a, **k)
+    setattr(k7b, name, counted)
+out = {}
+if sys.argv[2] == "train":
+    from sports_field_homography_tpu_torch.cli.train import main
+    from sports_field_homography_tpu_torch.train import loop
+    step_reduce = []
+    train_step = loop.train_step
+
+    def reduce_counted_step(*a, **k):
+        before = reduce["seconds"]
+        logs = train_step(*a, **k)
+        step_reduce.append(reduce["seconds"] - before)
+        return logs
+
+    loop.train_step = reduce_counted_step
+    hist = main(sys.argv[3:])
+    out["steps"] = hist["steps"]
+    out["step_all_reduce_seconds"] = step_reduce
+else:
+    from sports_field_homography_tpu_torch.cli.predict import process
+    process(sys.argv[3:])
+torch.cuda.synchronize()
+fns = {"conv3x3": conv3x3, "wgrad3x3": wgrad3x3, "deconv2x2": deconv2x2,
+       "deconv2x2_backward": deconv2x2_backward, "bn_relu_stats": bn_relu_stats,
+       "bn_relu_norm": bn_relu_norm, "bn_relu_bwd": k7b.bn_relu_bwd,
+       "bn_relu_bwd_sums": k7b.bn_relu_bwd_sums, "bn_relu_bwd_dx": k7b.bn_relu_bwd_dx,
+       "warp_nearest": warp_nearest}
+out["launches"] = {n: f.launches for n, f in fns.items()}
+out["launches"]["conv3x3_stats"] = conv3x3.stats_launches
+out["launches"]["conv3x3_dual"] = conv3x3.dual_launches
+out["tc"] = {n: fns[n].tc_launches for n in ("conv3x3", "wgrad3x3", "deconv2x2",
+                                              "deconv2x2_backward")}
+out["vec"] = {n: fns[n].vec_launches for n in ("bn_relu_bwd_sums", "bn_relu_bwd_dx",
+                                                "warp_nearest")}
+out["plain_k7bwd_calls"] = plain["calls"]
+out["all_reduce"] = reduce
+print("DP_COUNTS " + json.dumps(out), flush=True)
+"""
+DP_BATCH = 16                   # the global batch of the data-parallel train run
+DP_N_TRAIN = 2 * DP_BATCH + 9   # three steps; the tail of 9 splits 5 + 4
+DP_FRAMES = 32
+DP_TIMEOUT = 240                # seconds a rank may take
+
+
+def _dp_ranks(groups, out_dir):
+    """Two ranks for each group (``{tag: argv_of}``, rank ``i`` runs
+    ``argv_of(i)``), every group started at once, all on cuda:0; returns
+    ``{tag: [each rank's output]}``.  A rank that fails fails the phase."""
+    procs, paths = [], []
+    for tag, argv_of in groups.items():
+        for i in range(2):
+            paths.append(os.path.join(out_dir, f"{tag}_rank{i}.log"))
+            with open(paths[-1], "w") as f:
+                procs.append(subprocess.Popen(argv_of(i), cwd=REPO, stdout=f,
+                                              stderr=subprocess.STDOUT))
+    try:
+        rcs = [p.wait(timeout=DP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = [open(path).read() for path in paths]
+    if any(rcs):
+        raise AssertionError(f"data parallel {list(groups)}: ranks exited {rcs}:\n"
+                             + "\n=====\n".join(o[-3000:] for o in outs))
+    return {tag: outs[2 * k:2 * k + 2] for k, tag in enumerate(groups)}
+
+
+def _dp_counts(out):
+    line = next(ln for ln in out.splitlines() if ln.startswith("DP_COUNTS "))
+    return json.loads(line[len("DP_COUNTS "):])
+
+
+def _dp_split_k7bwd(dev, card):
+    """The split K7-bwd (``bn_relu_bwd_sums``, the all-reduce's place, then
+    ``bn_relu_bwd_dx``) against its plain versions at 360x640x64, batch 8,
+    f32 and bf16, and timed beside the ATen pair SyncBatchNorm uses."""
+    import torch
+
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import (
+        _relu_grad, bn_relu_bwd_dx, bn_relu_bwd_dx_plain, bn_relu_bwd_sums,
+        bn_relu_bwd_sums_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    c, m = 64, BATCH * 360 * 640
+    y = torch.randn(BATCH, 360, 640, c, device=dev, generator=gen) * 2.0 + 0.3
+    g = torch.randn(BATCH, 360, 640, c, device=dev, generator=gen)
+    mean = y.mean(dim=(0, 1, 2))
+    rstd = torch.rsqrt((y * y).mean(dim=(0, 1, 2)) - mean * mean + 1e-5)
+    gamma = torch.rand((c,), generator=gen, device=dev) + 0.5
+    beta = torch.randn((c,), generator=gen, device=dev) * 0.3
+    vecs = (mean, rstd, gamma, beta)
+
+    def split(yy, gg):
+        sums = bn_relu_bwd_sums(yy, gg, *vecs)
+        return bn_relu_bwd_dx(yy, gg, *vecs, sums, m), sums
+
+    dx, sums = vec_routed(bn_relu_bwd_dx, lambda: split(y, g))
+    # exact sums over the f32 ReLU mask the kernel and the plain version share
+    # (a float64 run would flip mask bits at the boundary, each worth ~4e-4
+    # of a sum here)
+    xhat, dyp = _relu_grad(y, g, *vecs)
+    xhat, dyp = xhat.double(), dyp.double()
+    sums64 = torch.cat([dyp.sum(dim=(0, 1, 2)), (dyp * xhat).sum(dim=(0, 1, 2))])
+    del xhat, dyp
+    e = _compare("split K7-bwd f32 dx", dx, bn_relu_bwd_dx_plain(y, g, *vecs, sums, m),
+                 1e-4, 1e-4)
+    r = _reduction("split K7-bwd f32 sums", sums, sums64, 1e-5)
+    del sums64
+    yb, gb = y.bfloat16(), g.bfloat16()
+    dxb, sumsb = vec_routed(bn_relu_bwd_dx, lambda: split(yb, gb))
+    eb = _compare("split K7-bwd bf16 dx", dxb,
+                  bn_relu_bwd_dx_plain(yb, gb, *vecs, sumsb, m), 2e-2, 2e-2)
+    rb = _reduction("split K7-bwd bf16 sums", sumsb,
+                    bn_relu_bwd_sums_plain(yb, gb, *vecs), 1e-3)
+    rep = _repeats_bitwise("split K7-bwd", lambda: split(yb, gb))
+    ms = cuda_ms(lambda: split(yb, gb))
+    pms = cuda_ms(lambda: bn_relu_bwd_dx_plain(yb, gb, *vecs,
+                                               bn_relu_bwd_sums_plain(yb, gb, *vecs), m))
+    # yardstick: the two ATen calls SyncBatchNorm's backward makes around its
+    # all-reduce (BN backward without the ReLU mask), on the same bf16 tensors
+    yl, gl = nchw(yb), nchw(gb)
+    count = torch.tensor([m], dtype=torch.int32, device=dev)
+
+    def library():
+        sdy, sdyx, _, _ = torch.batch_norm_backward_reduce(gl, yl, mean, rstd, gamma,
+                                                           True, False, False)
+        return torch.batch_norm_backward_elemt(gl, yl, mean, rstd, gamma, sdy, sdyx, count)
+
+    lib = cuda_ms(library)
+    bnd = bound(0, nbytes(yb, gb, dxb))
+    log(f"split K7-bwd (bn_relu_bwd_sums + bn_relu_bwd_dx) 360x640x{c}: f32 dx max abs err "
+        f"{e:.2e}, sums rel-L2 {r:.2e} (vs float64); bf16 dx max abs err {eb:.2e}, sums "
+        f"rel-L2 {rb:.2e}; {rep}; 16-byte route; bf16 {ms:.3f} ms (2 + 1 launches), plain "
+        f"{pms:.3f} ms, library (batch_norm_backward_reduce + _elemt) {lib:.3f} ms; bound "
+        f"{bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
+    return entry(max(e, eb), ms, pms, lib, bnd)
+
+
+def phase_data_parallel(dev, card, work):
+    """Two ranks on cuda:0 over gloo: the train CLI, the harness's f32 step
+    against one rank, the predict CLI on two hosts against one process, and
+    the split K7-bwd against its plain versions."""
+    import torch
+
+    from sports_field_homography_tpu_torch.data.png import write_png
+    from sports_field_homography_tpu_torch.data.synthetic import write_synthetic_dataset
+    from sports_field_homography_tpu_torch.parallel.distributed import free_port
+
+    result = _dp_split_k7bwd(dev, card)
+    out_dir = os.path.join(work, "dp")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # 1. the train CLI: the flagship at 640x360, bf16, global batch 16, 3 steps
+    data = os.path.join(work, "dp_synth")
+    t0 = time.perf_counter()
+    write_synthetic_dataset(data, DP_N_TRAIN, 4, COURT_IMG, COURT_POI, size=(640, 360),
+                            seed=3)
+    log(f"data parallel: wrote {DP_N_TRAIN + 4} synthetic 640x360 samples in "
+        f"{time.perf_counter() - t0:.1f} s")
+    conf = _train_conf(work, data, "dp", batchsize=DP_BATCH)
+    port = free_port()
+    outs = _dp_ranks({"train": lambda i: [
+        sys.executable, "-c", DP_CHILD, REPO, "train", "-c", conf, "--num_hosts", "2",
+        "--host_id", str(i), "--coordinator", f"127.0.0.1:{port}"]}, out_dir)["train"]
+    counts = [_dp_counts(o) for o in outs]
+    backends = [re.search(r"backend (\w+)", o).group(1) for o in outs]
+    log(f"data parallel train: backends {backends}")
+    if backends != ["gloo", "gloo"]:
+        raise AssertionError(f"data parallel: two ranks on one card took {backends}")
+    must = ("conv3x3", "conv3x3_stats", "conv3x3_dual", "wgrad3x3", "deconv2x2",
+            "deconv2x2_backward", "bn_relu_stats", "bn_relu_norm", "bn_relu_bwd_sums",
+            "bn_relu_bwd_dx")
+    for rank, cnt in enumerate(counts):
+        la = cnt["launches"]
+        log(f"data parallel train rank {rank}: kernel launches {la}; tensor cores "
+            f"{cnt['tc']}; 16-byte route {cnt['vec']}; all-reduces {cnt['all_reduce']}")
+        missing = [k for k in must if la[k] <= 0]
+        if missing:
+            raise AssertionError(f"data parallel rank {rank}: {missing} never launched")
+        if la["bn_relu_bwd"] or cnt["plain_k7bwd_calls"]:
+            raise AssertionError(f"data parallel rank {rank}: a K7-bwd ran unsplit "
+                                 f"({la['bn_relu_bwd']}) or plain "
+                                 f"({cnt['plain_k7bwd_calls']})")
+        if la["bn_relu_bwd_sums"] != la["bn_relu_bwd_dx"] or any(
+                cnt["vec"][k] != la[k] for k in ("bn_relu_bwd_sums", "bn_relu_bwd_dx")):
+            raise AssertionError(f"data parallel rank {rank}: the split K7-bwd's halves "
+                                 "differ in count or left the 16-byte route")
+        if any(cnt["tc"][k] != la[k] for k in cnt["tc"]):
+            raise AssertionError(f"data parallel rank {rank}: a bf16 launch left the "
+                                 "tensor cores")
+    steps = [c["steps"] for c in counts]
+    if len(steps[0]) != 3 or steps[0] != [dict(s, seconds=a["seconds"], wait=a["wait"])
+                                          for s, a in zip(steps[1], steps[0])]:
+        raise AssertionError(f"data parallel: the ranks' step logs differ or are not 3: "
+                             f"{steps}")
+    if not all(np.isfinite(v) for st in steps[0] for v in st.values()):
+        raise AssertionError(f"data parallel: non-finite losses {steps[0]}")
+    if not os.path.isfile(os.path.join(work, "train", "dp", "CP_epoch1.pth")):
+        raise AssertionError("data parallel: rank 0 wrote no CP_epoch1.pth")
+    secs = [st["seconds"] for st in steps[0]]
+    red, step_red = counts[0]["all_reduce"], counts[0]["step_all_reduce_seconds"]
+    log(f"data parallel train: 640x360 bf16 global batch {DP_BATCH} on two ranks sharing "
+        f"the card: steps {', '.join(f'{x * 1e3:.1f}' for x in secs)} ms (host clock, "
+        f"steps 2-3 {sum(secs[1:]) / 2 * 1e3:.1f} ms/step); in all-reduces "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in step_red)} ms a step, "
+        f"{sum(step_red[1:]) / sum(secs[1:]) * 100:.1f} % of steps 2-3 (rank 0; each "
+        f"timed after a device sync, waits on the other rank included); the run's "
+        f"{red['calls']} all-reduces moved {red['bytes'] / 1e6:.1f} MB [{card}]")
+
+    # 2. at once, each pair on the card: the harness at 128x72, f32, global
+    # batch 4, against one rank (one RMSprop step; the multi-step SGD
+    # contract), and the predict CLI on two hosts, merged, against the one
+    # process run before them
+    frames = os.path.join(work, "dp_game")
+    os.makedirs(frames, exist_ok=True)
+    rng = np.random.default_rng(5)
+    for i in range(DP_FRAMES):
+        write_png(os.path.join(frames, f"{i:06d}.png"),
+                  rng.integers(0, 256, size=(360, 640, 3), dtype=np.uint8))
+    ckpt = os.path.join(work, "flagship", "model.pth")
+    argv = ["--img_dir", frames, "--load", ckpt, "--req_outputs", "theta,consistency",
+            "--batchsize", str(BATCH), "--court_img", COURT_IMG, "--court_poi", COURT_POI]
+    one_dst, two_dst = os.path.join(out_dir, "predict_one"), os.path.join(out_dir, "predict_two")
+    from sports_field_homography_tpu_torch.cli import predict as predict_cli
+    predict_cli.process(argv + ["--dst_dir", one_dst])
+
+    ports = set()
+
+    def new_port():
+        port = free_port()
+        while port in ports:
+            port = free_port()
+        ports.add(port)
+        return port
+
+    def harness(*extra):
+        port = new_port()
+        return lambda i: [sys.executable, "-m", f"{PKG}.parallel.distributed", "--smoke",
+                          str(i), "2", str(port), "--device", "cuda:0", "--size", "128",
+                          "72", *extra]
+
+    predict_port = new_port()
+    outs = _dp_ranks({"harness_step": harness(),
+                      "harness_multistep": harness("--steps", "4"),
+                      "predict": lambda i: [
+                          sys.executable, "-c", DP_CHILD, REPO, "predict"] + argv + [
+                          "--dst_dir", two_dst, "--num_hosts", "2", "--host_id", str(i),
+                          "--coordinator", f"127.0.0.1:{predict_port}"]}, out_dir)
+
+    def fields(tag, line_tag):
+        return [dict(kv.split("=", 1) for kv in next(
+            ln for ln in o.splitlines() if ln.startswith(line_tag)).split()[1:])
+            for o in outs[tag]]
+
+    lines = fields("harness_step", "DIST_SMOKE")
+    a = lines[0]
+    log(f"data parallel f32 RMSprop step 128x72 batch 4: {a}")
+    loss_gap = abs(float(a["loss"]) - float(a["local"])) / max(abs(float(a["local"])), 1e-30)
+    if (lines[0]["digest"] != lines[1]["digest"] or loss_gap > 2e-3
+            or float(a["grad_rel_l2"]) >= 2e-2 or float(a["stats_vs_bound"]) > 1.0):
+        raise AssertionError(f"data parallel: the f32 two-rank step is outside the CPU "
+                             f"test's bounds of the one-rank step: {lines}")
+    lines = fields("harness_multistep", "DIST_MULTISTEP")
+    a = lines[0]
+    log(f"data parallel f32 multi-step contract 128x72 batch 4, 4 SGD steps: {a}")
+    if (lines[0]["digest"] != lines[1]["digest"]
+            or any(ln["resume_bit_equal"] != "True" for ln in lines)
+            or float(a["maxabs"]) > 1e-5):
+        raise AssertionError(f"data parallel: the multi-step contract failed on the card "
+                             f"(one digest, a bit-equal resume, params within 1e-5 of one "
+                             f"rank): {lines}")
+
+    for rank, o in enumerate(outs["predict"]):
+        la = _dp_counts(o)["launches"]
+        log(f"data parallel predict host {rank}: kernel launches {la}")
+        missing = [k for k in ("warp_nearest", "conv3x3", "conv3x3_dual", "deconv2x2",
+                               "bn_relu_norm") if la[k] <= 0]
+        if missing:
+            raise AssertionError(f"data parallel predict host {rank}: {missing} never "
+                                 "launched")
+    with open(os.path.join(one_dst, "dp_game_court.json")) as f:
+        one = json.load(f)
+    with open(os.path.join(two_dst, "dp_game_court.json")) as f:
+        two = json.load(f)
+    if sorted(one) != sorted(two) or len(one) != DP_FRAMES + 1:
+        raise AssertionError("data parallel predict: the merged JSON's frames differ from "
+                             "the one-process run's")
+    names = [k for k in one if k != "model"]
+    theta_gap = max(float(np.abs(np.subtract(one[k]["theta"], two[k]["theta"])).max())
+                    for k in names)
+    score_gap = max(abs(one[k]["score"] - two[k]["score"]) for k in names)
+    equal = sum(one[k] == two[k] for k in names)
+    log(f"data parallel predict: {DP_FRAMES} frames over two hosts, merged: theta max-abs "
+        f"{theta_gap:.2e}, score {score_gap:.2e} from the one-process run; {equal} of "
+        f"{DP_FRAMES} records equal [{card}]")
+    if theta_gap > 2e-4 or score_gap > 1e-3 + 1e-6:
+        raise AssertionError("data parallel predict: the merged records are outside "
+                             "docs/PARITY.md of the one-process run")
+    torch.cuda.synchronize()
+    result["launches"] = counts[0]["launches"]["bn_relu_bwd_sums"]
+    return result
+
+
 # the example conf's augmentation (conf/train_reconstructor.yaml.example)
 EXAMPLE_AUG = {"apperance": {"jitter": {"brightness": 0.35, "contrast": 0.35,
                                         "saturation": 0.25, "hue": 0.25}, "blur": 5},
@@ -3679,6 +4050,7 @@ KERNEL_TABLE = [   # name, source, the TPU kernel it replaces
     ("wgrad3x3", "wgrad3x3_sm90.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:291"),
     ("wgrad3x3_f32", "wgrad3x3.cu", "sports_field_homography_tpu/ops/conv3x3_pallas.py:291"),
     ("bn_relu_bwd", "bn_relu_bwd.cu", "sports_field_homography_tpu/ops/bn_pallas.py:129"),
+    ("bn_relu_bwd_split", "bn_relu_bwd.cu", "sports_field_homography_tpu/ops/bn_pallas.py:129"),
     ("bn_relu_stats", "bn_relu_fwd.cu", "sports_field_homography_tpu/ops/bn_pallas.py:109"),
     ("bn_relu_norm", "bn_relu_fwd.cu", "sports_field_homography_tpu/ops/bn_pallas.py:123"),
 ]
@@ -3721,6 +4093,9 @@ def main() -> int:
     train_launches, cp_dir, data = run("train", phase_train, dev, card, work)
     launches.update({k: train_launches[k] for k in
                      ("deconv2x2_backward", "wgrad3x3", "bn_relu_bwd", "bn_relu_stats")})
+    dp = run("data parallel", phase_data_parallel, dev, card, work)
+    launches["bn_relu_bwd_split"] = dp.pop("launches")
+    kres["bn_relu_bwd_split"] = dp
     launches.update(run("train parity", phase_train_parity))
     run("predict bilinear", phase_predict, dev, card, work, True)
     run("train bilinear", phase_train, dev, card, work, True)

@@ -22,6 +22,17 @@ host never waits on the batch it just launched.  ``--resume`` skips the
 frames an interrupted run already recorded in the part JSONL.  The video
 source and the debug renders need cv2; everything else runs with torch
 and numpy alone.
+
+Several devices and hosts, as the JAX CLI: ``--num_devices N`` splits each
+batch over N local cards, a copy of the model a card
+(``parallel/mesh.shard_predict_fn``; ``--batchsize`` a multiple of N, no
+collective); ``--num_hosts H --host_id h --coordinator host:port`` (or the
+``SFH_*`` variables) makes this process host h of H: it predicts its
+contiguous slice of the frames (``_host_slice``), writes its own part files
+(``{game}_court_processing.json.h{h}``, ``data.pkl.h{h}``; ``--resume``
+finishes its own part), and after a barrier host 0 merges the JSONL parts
+into ``{game}_court.json`` and concatenates the pickle parts.  The hosts
+must share ``--dst_dir``.
 """
 from __future__ import annotations
 
@@ -40,6 +51,8 @@ from ..data.dataset import BasicDataset, VideoDataset
 from ..data.image import have_cv2
 from ..data.loader import Loader, device_prefetch
 from ..data.png import encode_png
+from ..parallel.distributed import initialize_distributed, resolve_hosts
+from ..parallel.mesh import check_batch_divisible, local_devices, shard_predict_fn
 from ..utils.config import get_prediction_args, parse_config, replace_args
 from ..utils.logger import get_logger
 from ..utils.postprocess import draw_text, onehot_to_image, overlay
@@ -57,11 +70,8 @@ _WRITE_QUEUE = 8          # batches waiting for the writer thread
 
 def _check_slice(args, req_outputs) -> None:
     """Raise, before any model is built, on what this port does not do."""
-    if args.num_devices not in (None, 1) or args.num_hosts is not None \
-            or args.coordinator is not None:
-        raise NotImplementedError(
-            "--num_devices/--num_hosts/--coordinator: multi-device predict is "
-            "ROADMAP.md queue 1 step 7")
+    if args.num_devices is not None and args.num_devices < 1:
+        raise ValueError(f"--num_devices {args.num_devices}")
     if {"segm_mask", "warp_mask", "debug"} & set(req_outputs):
         if args.mask_type not in _MASK_TYPES:
             raise NotImplementedError(f"--mask_type {args.mask_type}")
@@ -146,10 +156,12 @@ class PickleMaskWriter:
     ``imencode`` returns it (``cv2.imdecode`` reads it).  ``append`` (resume) extends the stream after dropping a
     torn tail record."""
 
-    def __init__(self, dst_dir: str, postfix: str = "mask", append: bool = False):
+    def __init__(self, dst_dir: str, postfix: str = "mask", append: bool = False,
+                 suffix: str = ""):
+        # suffix: a host's part (".h{pid}"), concatenated into data.pkl by host 0
         dst_subdir = os.path.join(dst_dir, postfix)
         os.makedirs(dst_subdir, exist_ok=True)
-        path = os.path.join(dst_subdir, "data.pkl")
+        path = os.path.join(dst_subdir, "data.pkl" + suffix)
         if append and os.path.exists(path):
             _truncate_torn_pickle(path)
         self.file = open(path, "ab" if append else "wb+")
@@ -203,6 +215,29 @@ def _read_resume_names(path: str) -> set:
     return names
 
 
+def _host_slice(n: int, pid: int, nproc: int):
+    """Contiguous per-host [lo, hi) slice of n frames; both ends clamped, so
+    a host beyond the frames gets an empty slice and still reaches the
+    end-of-run barrier."""
+    per = (n + nproc - 1) // nproc
+    lo = min(pid * per, n)
+    return lo, min(lo + per, n)
+
+
+def _merge_pickle_parts(dst_dir: str, nproc: int) -> None:
+    """Concatenate the hosts' ``data.pkl.h{p}`` streams into ``data.pkl``
+    (pickle streams concatenate losslessly) and remove them."""
+    for postfix in ("court/segm_mask", "court/warp_mask"):
+        pkl = os.path.join(dst_dir, postfix, "data.pkl")
+        parts = [pkl + f".h{p}" for p in range(nproc) if os.path.exists(pkl + f".h{p}")]
+        if parts:
+            with open(pkl, "wb") as out:
+                for part in parts:
+                    with open(part, "rb") as f:
+                        out.write(f.read())
+                    os.remove(part)
+
+
 def _merge_jsonl_parts(parts, dst_path: str, model_name: str) -> None:
     """Merge the part JSONL files into ``{game}_court.json`` and remove
     them."""
@@ -225,8 +260,10 @@ class _OutputWriter:
     queue, waits on its copy event, and writes masks, JSONL records and
     debug renders.  ``busy_seconds`` counts its time after the waits."""
 
-    def __init__(self, args, req_outputs, json_path: str, resume: bool):
+    def __init__(self, args, req_outputs, json_path: str, resume: bool,
+                 part_suffix: str = ""):
         self.args = args
+        self.part_suffix = part_suffix
         self.debug = "debug" in req_outputs
         self.json_path = json_path
         self.resume = resume
@@ -271,7 +308,8 @@ class _OutputWriter:
     def _pickle(self, postfix: str) -> PickleMaskWriter:
         if postfix not in self.pickles:
             self.pickles[postfix] = PickleMaskWriter(self.args.dst_dir, postfix,
-                                                     append=self.resume)
+                                                     append=self.resume,
+                                                     suffix=self.part_suffix)
         return self.pickles[postfix]
 
     def _write(self, host, event, names, orig_img) -> None:
@@ -368,6 +406,7 @@ def process(argv=None, num_data_workers: int = 4) -> dict:
     w}``: the frames predicted, the loop's seconds (the writer's last
     batch included) and the writer thread's busy seconds."""
     args = get_prediction_args(argv)
+    hosts = resolve_hosts(args.coordinator, args.num_hosts, args.host_id)
     args.conf_path = discover_conf(args.load, args.conf_path)
     if args.conf_path is not None:
         print("Reading params from {}...".format(args.conf_path))
@@ -381,6 +420,11 @@ def process(argv=None, num_data_workers: int = 4) -> dict:
 
     req_outputs = [n for n in args.req_outputs.split(",") if n]
     _check_slice(args, req_outputs)
+    devices = None
+    if args.num_devices is not None and args.num_devices > 1:
+        devices = local_devices(args.device, args.num_devices)
+        check_batch_divisible(args.batchsize, args.num_devices)
+        args.device = str(devices[0])
     debug = "debug" in req_outputs
     if debug and "warp_mask" not in req_outputs:
         req_outputs.append("warp_mask")
@@ -400,6 +444,23 @@ def process(argv=None, num_data_workers: int = 4) -> dict:
         game_name = os.path.basename(args.img_dir)
     logger = get_logger(format="%(message)s", write_date=False)
 
+    # the hosts meet only at the end-of-run barrier: no collective in between
+    replicas = None
+    if hosts is not None and hosts[1] > 1:
+        replicas = initialize_distributed(hosts[0], hosts[1], hosts[2],
+                                          torch.device(args.device))
+        print(f"predict host {replicas.rank} of {replicas.world} (backend "
+              f"{replicas.backend})")
+    try:
+        return _predict(args, req_outputs, keep, consistency, debug, game_name, logger,
+                        devices, replicas, num_data_workers)
+    finally:
+        if replicas is not None:
+            replicas.close()
+
+
+def _predict(args, req_outputs, keep, consistency, debug, game_name, logger, devices,
+             replicas, num_data_workers):
     bundle = build_model(args, load=args.load, fold_bn=bool(args.fold_bn))
     device = bundle.device
     if args.img_dir is not None:
@@ -413,30 +474,39 @@ def process(argv=None, num_data_workers: int = 4) -> dict:
                             keep_orig_img=debug, decode_workers=args.video_workers)
         loader_workers = 1      # sequential decode wants in-order access
     source = data
+    n_all = len(data)
+    lo, hi = 0, n_all
+    part_suffix = ""
+    if replicas is not None:
+        lo, hi = _host_slice(n_all, replicas.rank, replicas.world)
+        part_suffix = f".h{replicas.rank}"
+        print(f"host {replicas.rank}: frames [{lo}, {hi}), {hi - lo} local")
 
     # --resume: skip the frames an interrupted run recorded in the part
-    # JSONL and append to it (their masks are on disk already)
-    json_path = os.path.join(args.dst_dir, f"{game_name}_court_processing.json")
+    # JSONL (this host's own part) and append to it (their masks are on disk)
+    part_base = os.path.join(args.dst_dir, f"{game_name}_court_processing.json")
+    json_path = part_base + part_suffix
     resume = bool(args.resume)
     done = _read_resume_names(json_path) if resume else set()
-    if done:
-        n_all = len(data)
-        if args.img_dir is not None:
-            todo = [i for i in range(n_all) if ids[i][: ids[i].rfind(".")] not in done]
-        else:
-            # video frames are recorded in order: skip the done prefix
-            lo = 0
-            while lo < n_all and str(lo).zfill(6) in done:
-                lo += 1
-            data.set_range(lo, n_all)
-            todo = range(lo, n_all)
+    n_slice = hi - lo
+    if args.img_dir is not None:
+        todo = [i for i in range(lo, hi) if ids[i][: ids[i].rfind(".")] not in done]
+    else:
+        # video frames are recorded in order: skip the done prefix
+        while lo < hi and str(lo).zfill(6) in done:
+            lo += 1
+        if (lo, hi) != (0, n_all):
+            data.set_range(lo, hi)
+        todo = range(lo, hi)
+    if len(todo) != n_all:
         data = _IndexView(data, todo)
-        logger.info(f"--resume: {n_all - len(data)} frames already in "
+    if done:
+        logger.info(f"--resume: {n_slice - len(data)} frames already in "
                     f"{os.path.basename(json_path)}, {len(data)} left to predict")
     loader = Loader(data, args.batchsize, num_workers=loader_workers)
     logger.info(f"""Start making predictions:
             Model file:        {args.load}
-            Device:            {device}
+            Device:            {device if devices is None else [str(d) for d in devices]}
             Compute dtype:     {args.compute_dtype}
             Images dir:        {args.img_dir}
             Video path:        {args.video_path}
@@ -453,7 +523,8 @@ def process(argv=None, num_data_workers: int = 4) -> dict:
             Output size:       {args.out_size}
         """)
 
-    predict = predict_fn(bundle, consistency, keep)
+    predict = (predict_fn(bundle, consistency, keep) if devices is None
+               else shard_predict_fn(bundle, devices, consistency, keep))
     try:
         from tqdm import tqdm
         pbar = tqdm(total=len(data), desc="Processing", unit="img")
@@ -461,7 +532,7 @@ def process(argv=None, num_data_workers: int = 4) -> dict:
         pbar = None
     t_start = time.perf_counter()
     n_done = 0
-    writer = _OutputWriter(args, req_outputs, json_path, resume)
+    writer = _OutputWriter(args, req_outputs, json_path, resume, part_suffix)
     try:
         with torch.inference_mode():
             for batch in device_prefetch(loader, device):
@@ -481,12 +552,19 @@ def process(argv=None, num_data_workers: int = 4) -> dict:
     logger.info("Processed {} frames in {:.2f}s ({:.1f} fps)".format(
         n_done, elapsed, n_done / max(elapsed, 1e-9)))
 
-    if writer.json_file is not None or (resume and os.path.exists(json_path)):
+    model_name = (os.path.basename(os.path.dirname(args.load))
+                  if args.load else "uninitialized")
+    court_json = os.path.join(args.dst_dir, f"{game_name}_court.json")
+    if replicas is not None:
+        # every host's parts are on disk; then host 0 merges them
+        replicas.barrier()
+        if replicas.is_main:
+            _merge_jsonl_parts([part_base + f".h{p}" for p in range(replicas.world)],
+                               court_json, model_name)
+            _merge_pickle_parts(args.dst_dir, replicas.world)
+    elif writer.json_file is not None or (resume and os.path.exists(json_path)):
         # with resume also when nothing was left: the part still needs merging
-        model_name = (os.path.basename(os.path.dirname(args.load))
-                      if args.load else "uninitialized")
-        _merge_jsonl_parts([json_path], os.path.join(args.dst_dir, f"{game_name}_court.json"),
-                           model_name)
+        _merge_jsonl_parts([json_path], court_json, model_name)
     print("Processing completed!")
     return {"frames": n_done, "seconds": elapsed, "writer_seconds": writer.busy_seconds}
 

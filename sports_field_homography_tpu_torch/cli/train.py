@@ -1,5 +1,5 @@
 """Training CLI (port of ``cli/train.py``: ``main`` and
-``prepare_dataloader``) on one device.  Run it with::
+``prepare_dataloader``), on one device or data parallel.  Run it with::
 
     python -m sports_field_homography_tpu_torch.cli.train -c conf.yaml
 
@@ -22,11 +22,23 @@ sets a flag; the loop then saves ``last.pth``, ``last_state.pth`` and
 ``last_state.sched.json`` at the next point between steps and exits 0 (a
 second signal exits at once, without a save); ``--resume`` continues from
 them exactly where the run stopped.  ``--load`` takes a ``.pth`` or the JAX
-package's ``.msgpack``.  Refused up front: multi-device training (ROADMAP.md
-queue 1 step 7), orbax directories (convert them with the JAX package's
-``scripts/export_torch_checkpoint.py``), the torchvision warm start by
-variant name or URL (it needs a download),
+package's ``.msgpack``.  Refused up front: orbax directories (convert them
+with the JAX package's ``scripts/export_torch_checkpoint.py``), the
+torchvision warm start by variant name or URL (it needs a download),
 ``scale`` augmentation without Pillow and UV masks without cv2.
+
+Data parallel (the JAX CLI's ``--num_devices`` / ``--num_hosts``): one
+rank a device, ``--batchsize`` the global batch split evenly over the
+ranks (``parallel/distributed.py``, ``train/loop.py``).  ``--num_devices
+N`` starts N local ranks (``torch.multiprocessing``; on ``--device cpu`` N
+gloo ranks), refused before any starts where the machine has fewer cards;
+``--num_hosts H --host_id h --coordinator host:port`` (or ``SFH_*``) makes
+this process host h's ranks of H * N.  The train order must be seeded
+(``--data_seed``, as in JAX).  Rank 0 writes the checkpoints, the conf
+copy and TensorBoard; every rank reads ``--resume``'s state, so
+``cp_dir`` must be one directory that every host sees.  SIGTERM to the
+``--num_devices`` parent goes to its ranks; a signal that reaches one rank
+stops them all after the same step.
 """
 from __future__ import annotations
 
@@ -41,7 +53,10 @@ import torch
 from ..data.dataset import BasicDataset, split_on_train_val
 from ..data.image import have_cv2
 from ..data.loader import Loader
+from ..models.layers import set_bn_sync
 from ..models.resnet import resnet_models
+from ..parallel.distributed import free_port, initialize_distributed, resolve_hosts
+from ..parallel.mesh import check_batch_divisible, local_devices
 from ..train.loop import LossConfig, train_net
 from ..utils.checkpoint import atomic_write, save_checkpoint, save_train_state, train_state
 from ..utils.config import get_training_args, parse_config, replace_args
@@ -53,11 +68,8 @@ __all__ = ["main", "prepare_dataloader", "warm_start_resnet"]
 
 def _check_slice(args) -> None:
     """Raise on what this port does not do, before anything is built."""
-    if args.num_devices not in (None, 1) or args.num_hosts is not None \
-            or args.coordinator is not None:
-        raise NotImplementedError(
-            "--num_devices/--num_hosts: multi-device training is ROADMAP.md "
-            "queue 1 step 7")
+    if args.num_devices is not None and args.num_devices < 1:
+        raise ValueError(f"--num_devices {args.num_devices}")
     check_loadable(args.load)
     pre = args.resnet_pretrained
     if pre is not None and (pre in resnet_models or pre.startswith(("http://", "https://"))):
@@ -75,12 +87,15 @@ def _check_slice(args) -> None:
 
 def prepare_dataloader(img_dir, mask_dir, anno_dir, anno_keys, val_names,
                        batch_size, target_size, only_ncaam=False, data_seed=0,
-                       num_workers=8, aug=None, use_uv=False, uint8_inputs=None):
+                       num_workers=8, aug=None, use_uv=False, uint8_inputs=None,
+                       shard=None):
     """Train and validation loaders.  The train order is shuffled from
     ``(data_seed, epoch)`` (``data_seed`` None: unseeded), and so are the
     augmentation parameters.  ``uint8_inputs``: ship train frames as uint8
     (default: unless augmenting, which works on float images); validation
-    frames are uint8 unless it is 0.  Both yield their true tail batch."""
+    frames are uint8 unless it is 0.  Both yield their true tail batch.
+    ``shard=(rank, world)``: the train loader yields this rank's slice of
+    each global batch (every rank validates on the whole set)."""
     train_ids, val_ids = split_on_train_val(img_dir, val_names, only_ncaam)
     train_u8 = bool(uint8_inputs) if uint8_inputs is not None else aug is None
     val_u8 = bool(uint8_inputs) if uint8_inputs is not None else True
@@ -90,7 +105,7 @@ def prepare_dataloader(img_dir, mask_dir, anno_dir, anno_keys, val_names,
     val = BasicDataset(sorted(val_ids), img_dir, target_size, mask_dir,
                        anno_dir, anno_keys, use_uv=use_uv, raw_uint8=val_u8)
     train_loader = Loader(train, batch_size, num_workers=num_workers,
-                          shuffle=True, seed=data_seed, pad_last=False)
+                          shuffle=True, seed=data_seed, pad_last=False, shard=shard)
     val_loader = Loader(val, batch_size, num_workers=num_workers, pad_last=False)
     return train_loader, len(train), val_loader, len(val)
 
@@ -142,14 +157,96 @@ def _resume_sched(args, logger):
 
 
 def main(argv=None, num_data_workers: int = 8) -> dict:
-    """Run the CLI; returns ``train_net``'s history plus ``cp_dir``."""
+    """Run the CLI; returns ``train_net``'s history plus ``cp_dir`` (with
+    ``--num_devices`` > 1, which runs the ranks in child processes, only
+    ``cp_dir``)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parse(argv)
+    hosts = resolve_hosts(args.coordinator, args.num_hosts, args.host_id)
+    per_host = int(args.num_devices or 1)
+    world = per_host * (hosts[1] if hosts else 1)
+    if world == 1:
+        return _train(args, num_data_workers)
+    devices = local_devices(args.device, per_host)
+    check_batch_divisible(args.batchsize, world)
+    if args.data_seed in (None, -1):
+        raise SystemExit("data-parallel training needs a seeded --data_seed: every rank "
+                         "derives the same epoch order from it")
+    coordinator = hosts[0] if hosts else f"127.0.0.1:{free_port()}"
+    first = hosts[2] * per_host if hosts else 0
+    if per_host == 1:
+        return _train(args, num_data_workers, (coordinator, world, first, devices[0]))
+    _spawn_ranks(argv, num_data_workers, coordinator, world, first, devices)
+    return {"cp_dir": args.cp_dir}
+
+
+def _parse(argv):
     args = get_training_args(argv)
     if args.conf_path is not None:
         args = replace_args(args, parse_config(args.conf_path))
     _check_slice(args)
+    return args
+
+
+def _rank_main(local: int, argv, num_data_workers, coordinator, world, first, devices):
+    """A ``--num_devices`` child: local rank ``local`` of this host."""
+    _train(_parse(argv), num_data_workers, (coordinator, world, first + local, devices[local]))
+
+
+def _spawn_ranks(argv, num_data_workers, coordinator, world, first, devices) -> None:
+    """Run this host's ranks as spawned children and wait for them; SIGTERM
+    to this process goes on to every child (SIGINT from a terminal reaches
+    them itself).  A failed rank fails the run: the others are ended."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(
+        _rank_main, args=(argv, num_data_workers, coordinator, world, first,
+                          [str(d) for d in devices]),
+        nprocs=len(devices), join=False, start_method="spawn")
+
+    def forward(signum, frame):
+        for p in ctx.processes:
+            if p.is_alive():
+                os.kill(p.pid, signum)
+
+    prev_term = signal.signal(signal.SIGTERM, forward)
+    prev_int = signal.signal(signal.SIGINT, signal.SIG_IGN)
+    try:
+        while not ctx.join():
+            pass
+    finally:
+        signal.signal(signal.SIGTERM, prev_term)
+        signal.signal(signal.SIGINT, prev_int)
+
+
+def _train(args, num_data_workers: int, rank_of=None) -> dict:
+    """Train in this process: on one device, or as one data-parallel rank
+    (``rank_of = (coordinator, world, rank, device)``)."""
+    replicas = None
+    if rank_of is not None:
+        coordinator, world, rank, device = rank_of
+        args.device = str(device)
+        replicas = initialize_distributed(coordinator, world, rank, torch.device(device))
+    try:
+        return _run(args, num_data_workers, replicas)
+    finally:
+        if replicas is not None:
+            replicas.close()
+
+
+def _run(args, num_data_workers: int, replicas) -> dict:
+    main_rank = replicas is None or replicas.is_main
     os.makedirs(args.cp_dir, exist_ok=True)
-    log_path = os.path.join(os.path.dirname(args.cp_dir.rstrip("/")), "train.txt")
-    logger = get_logger(log_path, format="%(message)s")
+    if main_rank:
+        log_path = os.path.join(os.path.dirname(args.cp_dir.rstrip("/")), "train.txt")
+        logger = get_logger(log_path, format="%(message)s")
+    else:
+        logger = get_logger(format=f"[rank {replicas.rank}] %(message)s", write_date=False)
+    if replicas is not None:
+        logger.info(f"Data parallel: rank {replicas.rank} of {replicas.world} on "
+                    f"{replicas.device}, backend {replicas.backend}, "
+                    f"{args.batchsize // replicas.world} of the global batch of "
+                    f"{args.batchsize} a rank")
 
     grad_accum = int(args.grad_accum or 1)
     aug = json.loads(args.aug) if isinstance(args.aug, str) else args.aug
@@ -159,12 +256,14 @@ def main(argv=None, num_data_workers: int = 8) -> dict:
         args.img_dir, args.mask_dir, args.anno_dir, _as_list(args.anno_keys),
         _as_list(args.val_names), args.batchsize, args.target_size,
         args.only_ncaam, data_seed, num_data_workers, aug=aug, use_uv=args.unet_uv,
-        uint8_inputs=args.uint8_inputs)
+        uint8_inputs=args.uint8_inputs,
+        shard=None if replicas is None else (replicas.rank, replicas.world))
 
     bundle = build_model(args, load=args.load)
     model, device = bundle.model, bundle.device
     if args.resnet_pretrained and args.load is None:
         warm_start_resnet(model, args.resnet_pretrained, logger)
+    set_bn_sync(model, replicas)
     court_template = bundle.court_labels.float() / float(args.mask_classes)
     court_poi = torch.from_numpy(bundle.court_poi).to(device)
     logger.info(f"""# Reconstructor network overview:
@@ -180,7 +279,7 @@ def main(argv=None, num_data_workers: int = 8) -> dict:
             Compute dtype:    {args.compute_dtype}
         """)
     logger.info(f"Dataset: train={n_train} val={n_val} aug={aug}")
-    if args.conf_path is not None:
+    if args.conf_path is not None and main_rank:
         copyfile(args.conf_path, os.path.join(args.cp_dir, "conf.yaml"))
 
     # disable losses for missing submodules (reference train.py:428-434)
@@ -201,17 +300,22 @@ def main(argv=None, num_data_workers: int = 8) -> dict:
         uv_lambda=args.uv_lambda, consist_start_iter=args.consist_start_iter,
         batch_size=args.batchsize, weight_semantics=args.weight_semantics)
 
-    state_holder = {"state": None}
-
     def save_model():
-        s = state_holder["state"]
-        path = os.path.join(args.cp_dir, "last.pth")
-        save_checkpoint(path, s["model"])
-        save_train_state(os.path.join(args.cp_dir, "last_state.pth"), train_state(**s))
-        atomic_write(os.path.join(args.cp_dir, "last_state.sched.json"),
-                     json.dumps(state_holder["sched"]).encode())
-        logger.info("Saved interrupt to {}".format(path))
+        """The interrupt save (rank 0 writes it, the other ranks wait for
+        it), then exit 0."""
+        if main_rank:
+            s = state_holder["state"]
+            path = os.path.join(args.cp_dir, "last.pth")
+            save_checkpoint(path, s["model"])
+            save_train_state(os.path.join(args.cp_dir, "last_state.pth"), train_state(**s))
+            atomic_write(os.path.join(args.cp_dir, "last_state.sched.json"),
+                         json.dumps(state_holder["sched"]).encode())
+            logger.info("Saved interrupt to {}".format(path))
+        if replicas is not None:
+            replicas.barrier()
         sys.exit(0)
+
+    state_holder = {"state": None, "save_and_exit": save_model}
 
     def request_interrupt(signum=None, frame=None):
         """SIGTERM/SIGINT: the loop saves at its next point between steps,
@@ -220,10 +324,9 @@ def main(argv=None, num_data_workers: int = 8) -> dict:
         if state_holder.get("interrupt"):
             logger.warning("Second interrupt: exiting without a save.")
             os._exit(1)
-        if state_holder["state"] is None:      # nothing trained yet
+        if state_holder["state"] is None and replicas is None:   # nothing trained yet
             sys.exit(0)
         state_holder["interrupt"] = True
-        state_holder["save_and_exit"] = save_model
         logger.info("Interrupt requested: finishing the in-flight step, "
                     "then saving the interrupt checkpoint...")
 
@@ -243,11 +346,15 @@ def main(argv=None, num_data_workers: int = 8) -> dict:
             vizualize=args.viz, state_holder=state_holder,
             resume_state_path=(os.path.join(args.cp_dir, "last_state.pth")
                                if args.resume else None),
-            async_ckpt=args.async_ckpt, grad_accum=grad_accum, resume_sched=resume_sched)
+            async_ckpt=args.async_ckpt, grad_accum=grad_accum, resume_sched=resume_sched,
+            replicas=replicas)
     finally:
         # in-process callers (tests) must not keep the handlers installed
         signal.signal(signal.SIGTERM, prev_term)
         signal.signal(signal.SIGINT, prev_int)
+    if train_loader.dropped:
+        logger.info(f"Data parallel: {train_loader.dropped} tail batch(es) with fewer "
+                    f"samples than the {replicas.world} ranks were skipped")
     history["cp_dir"] = args.cp_dir
     return history
 

@@ -37,6 +37,12 @@
 // __fadd_rn / __fsub_rn, which nvcc never contracts into an FMA) in the
 // plain version's order, so the kernel and its plain twin agree on every
 // mask bit.
+//
+// Data parallel (sync BatchNorm across ranks): the same kernels behind two
+// more entries, sfh_bn_relu_bwd_sums (pass 1 and the finish) and
+// sfh_bn_relu_bwd_dx (pass 2, dividing by the rows of every rank), so the
+// caller can all-reduce the 2*C sums between them.  The one-call entry
+// stays the one-rank path.
 #include "tile_gemm.cuh"
 
 namespace sfh {
@@ -189,12 +195,12 @@ bn_relu_bwd_dx_kernel(const T* __restrict__ y, const T* __restrict__ g,
                       const float* __restrict__ mean, const float* __restrict__ rstd,
                       const float* __restrict__ gamma, const float* __restrict__ beta,
                       const float* __restrict__ sums, T* __restrict__ dx, int M, int C,
-                      int gpb, int chunk) {
+                      int gpb, int chunk, int m_total) {
   const int blk = kDxReverse ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
   const Place p = place<VEC>(M, C, gpb, chunk, blk);
   if (p.n <= 0) return;
   const int c0 = p.grp * VEC;
-  const float fm = (float)M;
+  const float fm = (float)m_total;
   float mu[VEC], rs[VEC], ga[VEC], be[VEC], c1[VEC], m1[VEC], m2[VEC];
   load_channels<VEC>(mean, c0, mu);
   load_channels<VEC>(rstd, c0, rs);
@@ -246,10 +252,11 @@ bn_relu_bwd_dx_kernel(const T* __restrict__ y, const T* __restrict__ g,
   }
 }
 
+// Pass 1 and the finish: part (blocks, 2*C) partials, then sums (2*C).
 template <typename T, int VEC>
-int launch(const void* y, const void* g, const float* mean, const float* rstd,
-           const float* gamma, const float* beta, float* part, float* sums, void* dx,
-           int m, int c, int chunk, cudaStream_t st) {
+int launch_sums(const void* y, const void* g, const float* mean, const float* rstd,
+                const float* gamma, const float* beta, float* part, float* sums, int m, int c,
+                int chunk, cudaStream_t st) {
   const int groups = c / VEC;
   const int gpb = groups < kThreads ? groups : kThreads;
   const int blocks = (m - 1) / chunk + 1;
@@ -261,25 +268,73 @@ int launch(const void* y, const void* g, const float* mean, const float* rstd,
   if (err != cudaSuccess) return (int)err;
   bn_relu_bwd_finish_kernel<<<(2 * c + 31) / 32, dim3(32, kFinishLanes), 0, st>>>(
       part, blocks, 2 * c, sums);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Pass 2: dx over this call's m rows from the sums over m_total rows (m, or
+// the rows of every rank where the sums were all-reduced in between).
+template <typename T, int VEC>
+int launch_dx(const void* y, const void* g, const float* mean, const float* rstd,
+              const float* gamma, const float* beta, const float* sums, void* dx, int m,
+              int c, int chunk, int m_total, cudaStream_t st) {
+  const int groups = c / VEC;
+  const int gpb = groups < kThreads ? groups : kThreads;
+  const int blocks = (m - 1) / chunk + 1;
+  const dim3 grid((unsigned)blocks, (unsigned)((groups + gpb - 1) / gpb));
   bn_relu_bwd_dx_kernel<T, VEC><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(y), static_cast<const T*>(g), mean, rstd, gamma, beta, sums,
-      static_cast<T*>(dx), m, c, gpb, chunk);
+      static_cast<T*>(dx), m, c, gpb, chunk, m_total);
   return (int)cudaGetLastError();
+}
+
+// The vector width of a call: 1 on the scalar route, 16 bytes' worth of
+// values where the 16-byte route is asked for and allowed (C a multiple of
+// it, every pointer 16-byte aligned), -1 where it is asked for and not.
+template <typename T>
+int vec_width(bool vec, int c, const void* y, const void* g, const void* dx) {
+  constexpr int kVec = (int)(16 / sizeof(T));
+  if (!vec) return 1;
+  const bool aligned = reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  return (c % kVec == 0 && aligned) ? kVec : -1;
+}
+
+template <typename T>
+int run_sums(bool vec, const void* y, const void* g, const float* mean, const float* rstd,
+             const float* gamma, const float* beta, float* part, float* sums, int m, int c,
+             int chunk, cudaStream_t st) {
+  constexpr int kVec = (int)(16 / sizeof(T));
+  const int w = vec_width<T>(vec, c, y, g, y);
+  if (w < 0) return (int)cudaErrorInvalidValue;
+  if (w == 1) {
+    return launch_sums<T, 1>(y, g, mean, rstd, gamma, beta, part, sums, m, c, chunk, st);
+  }
+  return launch_sums<T, kVec>(y, g, mean, rstd, gamma, beta, part, sums, m, c, chunk, st);
+}
+
+template <typename T>
+int run_dx(bool vec, const void* y, const void* g, const float* mean, const float* rstd,
+           const float* gamma, const float* beta, const float* sums, void* dx, int m, int c,
+           int chunk, int m_total, cudaStream_t st) {
+  constexpr int kVec = (int)(16 / sizeof(T));
+  const int w = vec_width<T>(vec, c, y, g, dx);
+  if (w < 0) return (int)cudaErrorInvalidValue;
+  if (w == 1) {
+    return launch_dx<T, 1>(y, g, mean, rstd, gamma, beta, sums, dx, m, c, chunk, m_total, st);
+  }
+  return launch_dx<T, kVec>(y, g, mean, rstd, gamma, beta, sums, dx, m, c, chunk, m_total,
+                            st);
 }
 
 template <typename T>
 int run(bool vec, const void* y, const void* g, const float* mean, const float* rstd,
         const float* gamma, const float* beta, float* part, float* sums, void* dx, int m,
         int c, int chunk, cudaStream_t st) {
-  constexpr int kVec = (int)(16 / sizeof(T));
-  if (!vec) return launch<T, 1>(y, g, mean, rstd, gamma, beta, part, sums, dx, m, c, chunk, st);
-  const bool aligned = reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  if (c % kVec != 0 || !aligned) return (int)cudaErrorInvalidValue;
-  return launch<T, kVec>(y, g, mean, rstd, gamma, beta, part, sums, dx, m, c, chunk, st);
+  if (vec_width<T>(vec, c, y, g, dx) < 0) return (int)cudaErrorInvalidValue;
+  const int err = run_sums<T>(vec, y, g, mean, rstd, gamma, beta, part, sums, m, c, chunk, st);
+  if (err != 0) return err;
+  return run_dx<T>(vec, y, g, mean, rstd, gamma, beta, sums, dx, m, c, chunk, m, st);
 }
 
 }  // namespace
@@ -305,6 +360,45 @@ extern "C" int sfh_bn_relu_bwd(const void* y, const void* g, const float* mean,
   if (dtype == 1) {
     return sfh::run<__nv_bfloat16>(vec != 0, y, g, mean, rstd, gamma, beta, part, sums, dx,
                                    m, c, chunk, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The data-parallel form, split around the all-reduce of the sums.  First
+// half: pass 1 and the finish (two launches), sums (2*c) = [dbeta | dgamma]
+// of this rank's m rows; arguments as above (vec checks y and g only).
+extern "C" int sfh_bn_relu_bwd_sums(const void* y, const void* g, const float* mean,
+                                    const float* rstd, const float* gamma, const float* beta,
+                                    float* part, float* sums, int m, int c, int chunk, int vec,
+                                    int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m <= 0 || c <= 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    return sfh::run_sums<float>(vec != 0, y, g, mean, rstd, gamma, beta, part, sums, m, c,
+                                chunk, st);
+  }
+  if (dtype == 1) {
+    return sfh::run_sums<__nv_bfloat16>(vec != 0, y, g, mean, rstd, gamma, beta, part, sums,
+                                        m, c, chunk, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Second half: pass 2 (one launch), dx of this rank's m rows from the sums
+// over m_total rows of all ranks (the all-reduced sums; m_total >= m).
+extern "C" int sfh_bn_relu_bwd_dx(const void* y, const void* g, const float* mean,
+                                  const float* rstd, const float* gamma, const float* beta,
+                                  const float* sums, void* dx, int m, int c, int chunk,
+                                  int vec, int dtype, int m_total, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m <= 0 || c <= 0 || chunk <= 0 || m_total < m) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    return sfh::run_dx<float>(vec != 0, y, g, mean, rstd, gamma, beta, sums, dx, m, c, chunk,
+                              m_total, st);
+  }
+  if (dtype == 1) {
+    return sfh::run_dx<__nv_bfloat16>(vec != 0, y, g, mean, rstd, gamma, beta, sums, dx, m,
+                                      c, chunk, m_total, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,12 @@ its last sample and carries ``valid`` and ``num_valid`` (predict).
 Training takes the true smaller tail batch (``pad_last=False``).  The
 train shuffle's per-epoch order derives from ``(seed, epoch)`` as in the
 JAX loader, and ``skip_next_batches`` starts an epoch part-way through
-without reading what it skips (exact resume).
+without reading what it skips (exact resume).  A data-parallel rank
+(``shard=(rank, world)``) reads only its contiguous slice of each global
+batch (``parallel/distributed.process_slice``: a ragged tail 3 + 2 over two
+ranks), so the ranks together see exactly the samples, orders and
+augmentation seeds one process would; a global batch with fewer samples
+than ranks is skipped on every rank (``dropped`` counts them).
 ``device_prefetch`` replaces the JAX package's ``jax.device_put``
 prefetch: it copies a batch's arrays through pinned host memory with
 ``non_blocking`` copies, keeping ``_IN_FLIGHT`` batches in flight so the
@@ -17,10 +22,12 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.distributed import process_slice
 
 __all__ = ["Loader", "device_prefetch"]
 
@@ -52,7 +59,7 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
                  shuffle: bool = False, seed: Optional[int] = None,
-                 pad_last: bool = True):
+                 pad_last: bool = True, shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.num_workers = max(1, int(num_workers))
@@ -62,6 +69,8 @@ class Loader:
         self._epoch = 0
         self._skip = 0
         self._rng = np.random.default_rng(seed)
+        self.shard = shard
+        self.dropped = 0
 
     def __len__(self) -> int:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
@@ -94,6 +103,13 @@ class Loader:
             if pad:
                 idx = np.concatenate([idx, np.full(pad, idx[-1])])
                 valid = np.concatenate([valid, np.zeros(pad, bool)])
+            if self.shard is not None:
+                rank, world = self.shard
+                if len(idx) < world:
+                    self.dropped += 1
+                    continue
+                lo, size = process_slice(len(idx), rank, world)
+                idx, valid = idx[lo:lo + size], valid[lo:lo + size]
             yield idx, valid
 
     def __iter__(self) -> Iterator[Dict[str, object]]:

@@ -18,7 +18,8 @@ import torch
 from torch import nn
 
 __all__ = ["BN_EPS", "BN_MOMENTUM", "bn_eval", "bn_train", "bn_apply",
-           "update_running_stats", "nchw", "nhwc", "max_pool", "init_weights"]
+           "update_running_stats", "set_bn_sync", "nchw", "nhwc", "max_pool",
+           "init_weights"]
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1            # torch convention: weight of the new batch stat
@@ -57,20 +58,30 @@ def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
     bn.num_batches_tracked.add_(1)
 
 
-def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d, dim: int = 1) -> torch.Tensor:
+def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d, dim: int = 1, sync=None) -> torch.Tensor:
     """Train-mode BatchNorm over channel axis ``dim``, differentiable.
 
     Moments in f32 as E[x] and E[x^2] - E[x]^2 (biased variance
     normalizes), then ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
     cast back to x's dtype; the running stats update in place (the JAX
-    package's ``batch_norm_apply`` in train mode)."""
+    package's ``batch_norm_apply`` in train mode).  With ``sync`` (a
+    ``parallel/distributed.Replicas``; the JAX ``axis_name``) the moments
+    are the global batch's: the per-channel sums of x and x^2 go through a
+    differentiable all-reduce and are divided by the global count, so
+    unequal shards are exact."""
     axes = tuple(a for a in range(x.dim()) if a != dim % x.dim())
     shape = [1] * x.dim()
     shape[dim] = -1
     xf = x.float()
-    mean = xf.mean(dim=axes)
-    var = (xf * xf).mean(dim=axes) - mean * mean
     n = x.numel() // x.shape[dim]
+    if sync is None:
+        mean = xf.mean(dim=axes)
+        var = (xf * xf).mean(dim=axes) - mean * mean
+    else:
+        n = sync.count(n)
+        sums = sync.all_reduce(torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]))
+        mean = sums[0] / n
+        var = sums[1] / n - mean * mean
     update_running_stats(bn, mean.detach(), var.detach(), n)
     inv = torch.rsqrt(var + bn.eps) * bn.weight.float()
     y = (xf - mean.view(shape)) * inv.view(shape) + bn.bias.float().view(shape)
@@ -78,8 +89,20 @@ def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d, dim: int = 1) -> torch.Tensor:
 
 
 def bn_apply(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool,
-             dim: int = 1) -> torch.Tensor:
-    return bn_train(x, bn, dim) if training else bn_eval(x, bn, dim)
+             dim: int = 1, sync=None) -> torch.Tensor:
+    return bn_train(x, bn, dim, sync) if training else bn_eval(x, bn, dim)
+
+
+def set_bn_sync(model: nn.Module, sync) -> nn.Module:
+    """Give every train-mode BatchNorm of ``model`` the data-parallel group
+    ``sync`` (a ``parallel/distributed.Replicas``, or None for one device):
+    the modules with a ``bn_sync`` attribute (the ResNet's blocks and stem,
+    the UNet's DoubleConvs) pass it to their BatchNorm (the JAX
+    ``model.clone(bn_axis_name="data")``)."""
+    for m in model.modules():
+        if hasattr(m, "bn_sync"):
+            m.bn_sync = sync
+    return model
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int,

@@ -150,7 +150,9 @@ class Reconstructor(nn.Module):
                 court_poi: torch.Tensor, court_labels=None) -> dict:
         """Training / validation forward (the JAX ``Reconstructor.__call__``):
         BatchNorm uses batch statistics and updates its running stats when
-        the module is in training mode.
+        the module is in training mode; after ``models/layers.set_bn_sync``
+        (data parallel, the JAX ``bn_axis_name``) those of every rank's
+        batch.
 
         Args:
           x: (B, H, W, 3) float32 frames in [0, 1].

@@ -33,6 +33,7 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 
 class BasicBlock(nn.Module):
     expansion = 1
+    bn_sync = None           # models/layers.set_bn_sync
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, groups: int = 1, base_width: int = 64):
@@ -54,12 +55,13 @@ class BasicBlock(nn.Module):
         return pairs
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        t = self.training
-        out = torch.relu(bn_apply(_conv(x, self.conv1), self.bn1, t))
-        out = bn_apply(_conv(out, self.conv2), self.bn2, t)
+        t, sync = self.training, self.bn_sync
+        out = torch.relu(bn_apply(_conv(x, self.conv1), self.bn1, t, sync=sync))
+        out = bn_apply(_conv(out, self.conv2), self.bn2, t, sync=sync)
         identity = x
         if self.downsample is not None:
-            identity = bn_apply(_conv(x, self.downsample[0]), self.downsample[1], t)
+            identity = bn_apply(_conv(x, self.downsample[0]), self.downsample[1], t,
+                                sync=sync)
         return torch.relu(out + identity)
 
 
@@ -69,6 +71,7 @@ class Bottleneck(nn.Module):
     ``planes * base_width / 64 * groups``."""
 
     expansion = 4
+    bn_sync = None
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, groups: int = 1, base_width: int = 64):
@@ -92,13 +95,14 @@ class Bottleneck(nn.Module):
         return pairs
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        t = self.training
-        out = torch.relu(bn_apply(_conv(x, self.conv1), self.bn1, t))
-        out = torch.relu(bn_apply(_conv(out, self.conv2), self.bn2, t))
-        out = bn_apply(_conv(out, self.conv3), self.bn3, t)
+        t, sync = self.training, self.bn_sync
+        out = torch.relu(bn_apply(_conv(x, self.conv1), self.bn1, t, sync=sync))
+        out = torch.relu(bn_apply(_conv(out, self.conv2), self.bn2, t, sync=sync))
+        out = bn_apply(_conv(out, self.conv3), self.bn3, t, sync=sync)
         identity = x
         if self.downsample is not None:
-            identity = bn_apply(_conv(x, self.downsample[0]), self.downsample[1], t)
+            identity = bn_apply(_conv(x, self.downsample[0]), self.downsample[1], t,
+                                sync=sync)
         return torch.relu(out + identity)
 
 
@@ -126,6 +130,7 @@ class ResNetSTN(nn.Module):
     ``forward`` takes NHWC input in the compute dtype and returns theta
     (B, 1, 3, 3) in float32.
     """
+    bn_sync = None
 
     def __init__(self, block, layers: Sequence[int], in_channels: int,
                  groups: int = 1, width_per_group: int = 64):
@@ -162,7 +167,8 @@ class ResNetSTN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = nchw(x)                       # channels-last view
-        x = torch.relu(bn_apply(_conv(x, self.conv0), self.bn1, self.training))
+        x = torch.relu(bn_apply(_conv(x, self.conv0), self.bn1, self.training,
+                                sync=self.bn_sync))
         x = F.max_pool2d(x, 3, 2, 1)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = stage(x)

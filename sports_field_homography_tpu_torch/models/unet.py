@@ -41,6 +41,8 @@ class DoubleConv(nn.Module):
     """(conv3x3 pad1 -> BN -> ReLU) x 2 (reference ``unet/unet_parts.py``);
     ``forward(x, x2)`` runs conv1 on the channel concat [x, x2]."""
 
+    bn_sync = None           # models/layers.set_bn_sync
+
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[int] = None):
         super().__init__()
@@ -63,8 +65,11 @@ class DoubleConv(nn.Module):
         if self.training:
             out, m1, v1, m2, v2 = double_conv_train(
                 x, _hwio(c1.weight), c1.bias, bn1.weight, bn1.bias,
-                _hwio(c2.weight), c2.bias, bn2.weight, bn2.bias, BN_EPS, x2=x2)
+                _hwio(c2.weight), c2.bias, bn2.weight, bn2.bias, BN_EPS, x2=x2,
+                sync=self.bn_sync)
             n = x.shape[0] * x.shape[1] * x.shape[2]
+            if self.bn_sync is not None:
+                n = self.bn_sync.count(n)
             update_running_stats(bn1, m1, v1, n)
             update_running_stats(bn2, m2, v2, n)
             return out

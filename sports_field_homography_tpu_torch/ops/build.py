@@ -48,6 +48,8 @@ _SIGNATURES = {
     "sfh_deconv2x2_bwd_sm90": [_P] * 5 + [_I] * 7 + [_P],
     "sfh_wgrad3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sfh_bn_relu_bwd": [_P] * 9 + [_I] * 5 + [_P],
+    "sfh_bn_relu_bwd_sums": [_P] * 8 + [_I] * 5 + [_P],
+    "sfh_bn_relu_bwd_dx": [_P] * 8 + [_I] * 6 + [_P],
     "sfh_bn_relu_stats": [_P, _P, _I, _I, _I, _I, _P],
     "sfh_bn_relu_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "sfh_sum_rows": [_P, _P, _I, _I, _I, _I, _P],

@@ -33,6 +33,17 @@ concatenated along the input axis; db1 once; K2 dgrad with each half's
 ``dgrad_weights``, giving the two input gradients.  The Function saves the
 two inputs, not a concat.
 
+Data parallel (``sync``, a ``parallel/distributed.Replicas``): BatchNorm
+over the global batch, as the JAX package's ``bn_axis_name`` does (its
+sync path stays on XLA; here the kernels stay on it).  The (2, C) sums of
+K2's stats epilogue (the stem's: K7-fwd's stats) are all-reduced before
+``finalize_stats``, with the global count M, so unequal shards are exact;
+each K7-bwd call splits around the all-reduce of its 2C sums
+(``bn_relu_bwd_sums``, then ``bn_relu_bwd_dx`` with the global M).  The
+dgamma / dbeta this Function returns are the rank's own sums, taken before
+that all-reduce: the gradient all-reduce adds them once, as every other
+parameter's share.
+
 The 3-channel stem conv is not a K2 launch: it stays on cuDNN in both
 directions, as the JAX package keeps it on XLA (``_xla_conv_stats``, and
 the conv VJP in ``_bwd_vjp``); its batch statistics are K7-fwd's stats of
@@ -44,7 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from .bn_relu import bn_relu_norm, bn_relu_stats, finalize_stats
-from .bn_relu_bwd import bn_relu_bwd
+from .bn_relu_bwd import bn_relu_bwd, bn_relu_bwd_dx, bn_relu_bwd_sums
 from .conv3x3 import conv3x3, dgrad_weights
 from .wgrad3x3 import wgrad3x3
 
@@ -113,25 +124,42 @@ def _stem_conv_stats(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor):
     return y.to(dt), bn_relu_stats(y)
 
 
+def _bn_relu_bwd(ctx, y, g, mean, rstd, gamma, beta):
+    """K7-bwd in one call, or, with ``ctx.sync``, split around the
+    all-reduce of its sums; returns (dy, this rank's dgamma, dbeta)."""
+    if ctx.sync is None:
+        return bn_relu_bwd(y, g, mean, rstd, gamma, beta)
+    c = y.shape[-1]
+    sums = bn_relu_bwd_sums(y, g, mean, rstd, gamma, beta)
+    own = sums.clone()
+    ctx.sync.all_reduce_(sums)
+    return bn_relu_bwd_dx(y, g, mean, rstd, gamma, beta, sums, ctx.m), own[c:], own[:c]
+
+
 class _DoubleConvTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, x2, k1, b1, g1, be1, k2, b2, g2, be2, eps):
+    def forward(ctx, x, x2, k1, b1, g1, be1, k2, b2, g2, be2, eps, sync):
         n, h, w, _ = x.shape
-        m = n * h * w
+        m = n * h * w if sync is None else sync.count(n * h * w)
         if _is_stem(x, x2):
             y1, s1 = _stem_conv_stats(x, k1, b1)
         else:
             y1, s1 = _conv1(x, x2, k1, b1, stats=True)
+        if sync is not None:
+            s1 = sync.all_reduce_(s1.contiguous())
         mean1, var1, rstd1 = finalize_stats(s1, m, eps)
         inv1 = rstd1 * g1.float()
         y2, s2 = conv3x3(y1, k2, b2, prologue=(mean1, inv1, be1.float()),
                          stats=True)
+        if sync is not None:
+            s2 = sync.all_reduce_(s2.contiguous())
         mean2, var2, rstd2 = finalize_stats(s2, m, eps)
         out = bn_relu_norm(y2, mean2, rstd2 * g2.float(), be2.float())
         ctx.save_for_backward(x, x2, y1, y2, mean1, rstd1, mean2, rstd2,
                               k1, g1, be1, k2, g2, be2)
         ctx.mark_non_differentiable(mean1, var1, mean2, var2)
+        ctx.sync, ctx.m = sync, m
         return out, mean1, var1, mean2, var2
 
     @staticmethod
@@ -139,11 +167,11 @@ class _DoubleConvTrain(torch.autograd.Function):
         (x, x2, y1, y2, mean1, rstd1, mean2, rstd2,
          k1, g1, be1, k2, g2, be2) = ctx.saved_tensors
         dt = x.dtype
-        dy2, dg2, dbe2 = bn_relu_bwd(y2, g, mean2, rstd2, g2, be2)
+        dy2, dg2, dbe2 = _bn_relu_bwd(ctx, y2, g, mean2, rstd2, g2, be2)
         inv1 = rstd1 * g1.float()
         dk2, db2 = wgrad3x3(y1, dy2, prologue=(mean1, inv1, be1.float()))
         dz1 = conv3x3(dy2, dgrad_weights(k2))
-        dy1, dg1, dbe1 = bn_relu_bwd(y1, dz1, mean1, rstd1, g1, be1)
+        dy1, dg1, dbe1 = _bn_relu_bwd(ctx, y1, dz1, mean1, rstd1, g1, be1)
         dx = dx2 = None
         if _is_stem(x, x2):
             kd = k1.to(dt).permute(3, 2, 0, 1)
@@ -168,11 +196,11 @@ class _DoubleConvTrain(torch.autograd.Function):
                 dx = conv3x3(dy1, dgrad_weights(k1a))
             if ctx.needs_input_grad[1]:
                 dx2 = conv3x3(dy1, dgrad_weights(k1b))
-        return dx, dx2, dk1, db1, dg1, dbe1, dk2, db2, dg2, dbe2, None
+        return dx, dx2, dk1, db1, dg1, dbe1, dk2, db2, dg2, dbe2, None, None
 
 
 def double_conv_train(x, k1, b1, g1, be1, k2, b2, g2, be2, eps: float = 1e-5,
-                      x2=None):
+                      x2=None, sync=None):
     """(conv3x3 -> train-BN -> ReLU) x 2, differentiable.
 
     Args:
@@ -182,8 +210,11 @@ def double_conv_train(x, k1, b1, g1, be1, k2, b2, g2, be2, eps: float = 1e-5,
         g2, be2: BN scales and shifts.
       x2: optional (N, H, W, Cin2) second input in x's dtype: conv1 runs
         on the concat [x, x2] without building it.
+      sync: a ``parallel/distributed.Replicas`` whose ``set_batch`` has
+        run for this batch: BatchNorm over every rank's batch.
     Returns:
       (out (N, H, W, Cout) in x's dtype, mean1, var1, mean2, var2): the
-      batch means and biased variances in f32, detached.
+      batch means and biased variances in f32 (of the global batch with
+      ``sync``), detached.
     """
-    return _DoubleConvTrain.apply(x, x2, k1, b1, g1, be1, k2, b2, g2, be2, eps)
+    return _DoubleConvTrain.apply(x, x2, k1, b1, g1, be1, k2, b2, g2, be2, eps, sync)

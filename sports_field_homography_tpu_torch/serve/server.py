@@ -38,7 +38,7 @@ Endpoints (the JAX server's):
 
 SIGTERM drains: the server stops accepting, serves what is queued, and
 exits 0.  Refused before any model is built: ``--num_devices`` above 1 with
-a checkpoint (ROADMAP.md queue 1 item 9); with an artifact it is logged
+a checkpoint (ROADMAP.md queue 1 item 16); with an artifact it is logged
 and ignored, as the JAX server does.
 """
 from __future__ import annotations
@@ -79,7 +79,8 @@ def _check_slice(args) -> None:
     if devices not in (None, 1) or args.num_hosts is not None \
             or args.coordinator is not None:
         raise NotImplementedError(
-            "--num_devices: multi-device serving is ROADMAP.md queue 1 item 9 (step 7)")
+            "--num_devices: multi-device serving from a checkpoint is ROADMAP.md "
+            "queue 1 item 16")
 
 
 def _decode_frame(raw: bytes, target_hw, channel_order: str) -> np.ndarray:

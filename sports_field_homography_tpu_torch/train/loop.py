@@ -16,6 +16,17 @@ pads nothing, and that step runs on the same kernels.  With gradient
 accumulation a step takes K micro-batches, runs K backward passes into the
 same ``.grad`` (running stats threaded through them in order), divides by
 K, then clips and steps once.
+
+Data parallel (``replicas``, a ``parallel/distributed.Replicas``; the JAX
+``make_train_step(axis_name="data")`` under ``shard_train_step``): each
+rank runs its slice of every (micro-)batch with BatchNorm over the global
+batch (``models/layers.set_bn_sync``), scales its losses by ``B_local *
+ranks / B_global`` (the global counts all-reduced first, so a ragged tail
+split 3 + 2 gives the global means), and after the last micro-batch one
+flat all-reduce averages the gradients, the logs and a stop flag
+(``parallel/mesh.average_gradients``); every rank then clips and steps
+alike.  Only rank 0 writes checkpoints and TensorBoard; every rank runs
+the validation, and rank 0's metrics step every rank's scheduler.
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ import torch
 from ..models.losses import (cross_entropy_map, focal_loss_map, mse_map,
                              per_sample_weighted, reprojection_loss,
                              smooth_l1_map)
+from ..parallel.mesh import average_gradients
 from ..utils.checkpoint import AsyncSaver, load_train_state, save_checkpoint
 from .evaluate import eval_reconstructor, norm_img
 from .optim import clip_gradients, make_optimizer, make_scheduler
@@ -87,23 +99,28 @@ def consistency_labels(warp_mask: torch.Tensor, num_classes: int) -> torch.Tenso
 
 def compute_losses(preds: Dict[str, torch.Tensor], batch: Batch, step_no: int,
                    cfg: LossConfig, num_classes: int,
-                   consist_labels: Optional[torch.Tensor] = None):
+                   consist_labels: Optional[torch.Tensor] = None, shard=None):
     """The JAX ``make_loss_fn`` objective on one device, on a batch of
     real samples (no ``valid`` mask).  The UV loss runs when
     ``cfg.uv_loss`` is set and the model returned ``uv``.
     ``consist_labels`` replaces ``consistency_labels(preds["warp_mask"])``
     as the consistency loss's targets (to hold two runs to the same
-    labels).  Returns (total f32 scalar, logs): logs hold the detached
+    labels).  ``shard``: ``(scale, global weight sum / B_global)`` on a
+    data-parallel rank (``train_step``); every term is scaled so that the
+    ranks' mean is the global batch's loss (the JAX ``scale`` and
+    ``wbar``).  Returns (total f32 scalar, logs): logs hold the detached
     per-loss values under the JAX names (Seg_loss, Rec_loss, UV_loss,
     Reproj_loss, Cons_loss, Tot_loss).
     """
     logs = {}
     w_raw = batch["weight"].reshape(-1).float()
     total = torch.zeros((), dtype=torch.float32, device=w_raw.device)
+    scale = 1.0 if shard is None else shard[0]
     if cfg.weight_semantics == "ref":
-        wbar, seg_rec_w = w_raw.mean(), torch.ones_like(w_raw)
+        wbar = w_raw.mean() if shard is None else shard[1]
+        seg_rec_w = torch.ones_like(w_raw) * scale
     else:
-        wbar, seg_rec_w = 1.0, w_raw
+        wbar, seg_rec_w = 1.0, w_raw * scale
 
     if cfg.seg_loss is not None:
         m = _class_map(cfg.seg_loss)(preds["logits"], batch["mask"])
@@ -119,14 +136,14 @@ def compute_losses(preds: Dict[str, torch.Tensor], batch: Batch, step_no: int,
     if cfg.uv_loss is not None and "uv" in preds:
         # truly per-sample in the reference too: its NCHW map broadcasts aligned
         uvl = per_sample_weighted(_elementwise(cfg.uv_loss)(preds["uv"], batch["uv"]),
-                                  w_raw) * cfg.uv_lambda
+                                  w_raw * scale) * cfg.uv_lambda
         total = total + uvl
         logs["UV_loss"] = uvl
     if cfg.reproj_loss is not None:
         rl = reprojection_loss(preds["poi"], batch["poi"].float(),
                                batch["nonzeros"].float(),
                                batch["num_nonzero"].float(), "none")
-        rl = rl.mean() * cfg.reproj_lambda
+        rl = rl.mean() * scale * cfg.reproj_lambda
         total = total + rl
         logs["Reproj_loss"] = rl
     if cfg.consist_loss is not None:
@@ -135,7 +152,7 @@ def compute_losses(preds: Dict[str, torch.Tensor], batch: Batch, step_no: int,
         m = _class_map(cfg.consist_loss)(preds["logits"], labels)
         # warmup gate (reference train.py:219-220), a multiplier as in JAX
         gate = float(step_no * cfg.batch_size >= cfg.consist_start_iter)
-        cl = m.mean() * cfg.consist_lambda * gate
+        cl = m.mean() * scale * cfg.consist_lambda * gate
         total = total + cl
         logs["Cons_loss"] = cl
     logs["Tot_loss"] = total
@@ -144,22 +161,38 @@ def compute_losses(preds: Dict[str, torch.Tensor], batch: Batch, step_no: int,
 
 def train_step(model, optimizer, batch: Union[Batch, List[Batch]], step_no: int,
                court_template: torch.Tensor, court_poi: torch.Tensor,
-               cfg: LossConfig, return_grads: bool = False):
+               cfg: LossConfig, return_grads: bool = False, replicas=None,
+               stop: bool = False):
     """One optimizer step on a device batch (uint8 or float ``image``), or
     on a list of K micro-batches (gradient accumulation: K backward passes,
     the gradients' mean, one clip and one optimizer step; the logs are the
     K micro-batches' mean).
 
+    ``replicas`` (data parallel): ``batch`` is this rank's slice; each
+    micro-batch first all-reduces its size and weight sum, BatchNorm runs
+    over the global batch (the model's ``bn_sync``), and one all-reduce
+    averages the gradients and the logs, and ORs ``stop`` (this rank's
+    interrupt flag) into ``logs["stop"]``: every rank reads the same
+    verdict.
+
     Returns the logs (detached device scalars) and, with ``return_grads``,
-    the parameter gradients before clipping, by parameter name.
+    the parameter gradients before clipping (averaged over the ranks), by
+    parameter name.
     """
     micro = list(batch) if isinstance(batch, (list, tuple)) else [batch]
     model.train()
     optimizer.zero_grad(set_to_none=True)
     logs = None
     for mb in micro:
+        shard = None
+        if replicas is not None:
+            n_local = int(mb["image"].shape[0])
+            w_sum = mb["weight"].reshape(-1).float().sum()
+            n_total, w_total = replicas.set_batch(n_local, w_sum)
+            shard = (n_local * replicas.world / n_total, w_total / n_total)
         preds = model(norm_img(mb["image"]), court_template, court_poi)
-        total, lg = compute_losses(preds, mb, step_no, cfg, model.config.mask_classes)
+        total, lg = compute_losses(preds, mb, step_no, cfg, model.config.mask_classes,
+                                   shard=shard)
         total.backward()
         logs = lg if logs is None else {k: logs[k] + v for k, v in lg.items()}
     if len(micro) > 1:
@@ -168,6 +201,12 @@ def train_step(model, optimizer, batch: Union[Batch, List[Batch]], step_no: int,
             if p.grad is not None:
                 p.grad.div_(k)
         logs = {name: v / k for name, v in logs.items()}
+    if replicas is not None:
+        names = list(logs)
+        *summed, votes = average_gradients(
+            model.parameters(), replicas, [logs[n] for n in names] + [float(stop)])
+        logs = {n: v / replicas.world for n, v in zip(names, summed)}
+        logs["stop"] = votes > 0
     grads = None
     if return_grads:
         grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
@@ -230,7 +269,7 @@ def train_net(model, court_template, court_poi, train_loader, n_train,
               device, opt="RMSprop", epochs=5, lr=1e-4, w_decay=1e-8,
               target_size=(1280, 720), cp_dir=None, logger=None, log_dir=None,
               vizualize=False, state_holder=None, resume_state_path=None,
-              async_ckpt=False, grad_accum=1, resume_sched=None):
+              async_ckpt=False, grad_accum=1, resume_sched=None, replicas=None):
     """Host-side training orchestration (the JAX ``train_net`` on one
     device).
 
@@ -254,6 +293,14 @@ def train_net(model, court_template, court_poi, train_loader, n_train,
     epoch)`` and skips its first k optimizer steps' batches unread, so an
     interrupted and resumed run finishes the original plan exactly as an
     uninterrupted one.
+
+    ``replicas`` (data parallel): ``train_loader`` yields this rank's
+    slices of the global batches (``batch_size`` is the global size) and
+    the model's BatchNorm is synced (``models/layers.set_bn_sync``).  The
+    interrupt is agreed on by every rank (any rank's flag stops all, after
+    the same step); rank 0 alone writes TensorBoard and checkpoints; every
+    rank validates and steps its scheduler on rank 0's metrics; a resume
+    reads ``resume_state_path`` after a barrier.
 
     Returns ``{"steps": [per-step logs as floats, with "seconds" on the
     host clock from the end of the previous step and "wait", the part of
@@ -281,20 +328,29 @@ reproj={loss_cfg.reproj_lambda} consist={loss_cfg.consist_lambda} uv={loss_cfg.u
             Log dir:         {log_dir}
             Device:          {device}
     """)
-    writer = _summary_writer(log_dir, logger)
+    main = replicas is None or replicas.is_main
+    writer = _summary_writer(log_dir, logger) if main else None
     optimizer = make_optimizer(opt, model.parameters(), lr, w_decay)
     scheduler = make_scheduler(optimizer)
     global_step = 0
+    if replicas is not None:
+        replicas.barrier()            # rank 0's files are complete before anyone reads
     if resume_state_path is not None and os.path.exists(resume_state_path):
         global_step = load_train_state(resume_state_path, model, optimizer, scheduler)["step"]
         logger.info(f"Resumed full train state from {resume_state_path} (step {global_step})")
     history = {"steps": [], "validations": []}
-    saver = AsyncSaver() if async_ckpt else None
+    saver = AsyncSaver() if async_ckpt and main else None
 
-    def interrupt_check():
+    def interrupted() -> bool:
+        return state_holder is not None and bool(state_holder.get("interrupt"))
+
+    def interrupt_check(agreed=None):
         # the signal handler only sets a flag; the save happens here, where
-        # no step is half done
-        if state_holder is not None and state_holder.get("interrupt"):
+        # no step is half done.  Data parallel: the ranks' flags are ORed
+        # (in the step's all-reduce, ``agreed``, or here), so all stop at once
+        stop = interrupted() if replicas is None else (
+            replicas.any(interrupted()) if agreed is None else agreed)
+        if stop:
             if saver is not None:
                 saver.wait()          # flush pending epoch checkpoints
             state_holder["save_and_exit"]()
@@ -312,6 +368,12 @@ reproj={loss_cfg.reproj_lambda} consist={loss_cfg.consist_lambda} uv={loss_cfg.u
         result = eval_reconstructor(model, device_prefetch(val_loader, device),
                                     court_template, court_poi, target_size,
                                     loss_cfg.weight_semantics, keep_last=images)
+        if replicas is not None:      # rank 0's metrics on every rank
+            keys = sorted(k for k, v in result.items() if not isinstance(v, np.ndarray))
+            t = torch.tensor([float(result[k]) for k in keys], dtype=torch.float64,
+                             device=replicas.device)
+            replicas.broadcast_(t, 0)
+            result.update(zip(keys, t.tolist()))
         history["validations"].append({k: v for k, v in result.items()
                                        if not isinstance(v, np.ndarray)})
         lr_before = optimizer.param_groups[0]["lr"]
@@ -379,8 +441,10 @@ reproj={loss_cfg.reproj_lambda} consist={loss_cfg.consist_lambda} uv={loss_cfg.u
                 want_grads = (writer is not None and val_loader is not None
                               and (global_step + 1) % val_step_n == 0)
                 logs = train_step(model, optimizer, batch, global_step, court_template,
-                                  court_poi, loss_cfg, return_grads=want_grads)
+                                  court_poi, loss_cfg, return_grads=want_grads,
+                                  replicas=replicas, stop=interrupted())
                 logs, grads = logs if want_grads else (logs, None)
+                agreed = bool(logs.pop("stop")) if replicas is not None else None
                 logs = {k: float(v) for k, v in logs.items()}
                 global_step += 1
                 steps_in_epoch += 1
@@ -392,7 +456,7 @@ reproj={loss_cfg.reproj_lambda} consist={loss_cfg.consist_lambda} uv={loss_cfg.u
                         "step": global_step, "epoch": epoch,
                         "opt_steps_done": steps_in_epoch}
                     state_holder["sched"] = {"epoch": epoch, "opt_steps_done": steps_in_epoch}
-                interrupt_check()
+                interrupt_check(agreed)
                 epoch_loss += logs["Tot_loss"]
                 logger.info("step {}: {}".format(global_step, ", ".join(
                     f"{k} {v:.5f}" for k, v in logs.items())))
@@ -406,7 +470,7 @@ reproj={loss_cfg.reproj_lambda} consist={loss_cfg.consist_lambda} uv={loss_cfg.u
                 t0 = time.perf_counter()
             logger.info("Epoch {} done in {:.1f}s, loss {:.4f}".format(
                 epoch + 1, time.perf_counter() - t_epoch, epoch_loss))
-            if cp_dir is not None:
+            if cp_dir is not None and main:
                 path = os.path.join(cp_dir, f"CP_epoch{epoch + 1}.pth")
                 if saver is not None:
                     saver.save(path, model.state_dict())

@@ -222,6 +222,35 @@ def test_bn_relu_bwd_edges(dev, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 5), (2, 7, 9, 33), (3, 45, 80, 96)])
+def test_bn_relu_bwd_split_edges(dev, dtype, shape):
+    """The data-parallel halves: the sums and dx with m_total = M equal the
+    one-call entry bit for bit (the same kernels); dx from sums over more
+    rows (another rank's share added) against the plain version."""
+    from sports_field_homography_tpu_torch.ops.bn_relu_bwd import (
+        bn_relu_bwd, bn_relu_bwd_dx, bn_relu_bwd_dx_plain, bn_relu_bwd_sums)
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    c, m = shape[-1], shape[0] * shape[1] * shape[2]
+    y = (_rand(gen, shape, dev, 2.0) + 0.3).to(dtype)
+    g = _rand(gen, shape, dev).to(dtype)
+    yf = y.float()
+    mean = yf.mean(dim=(0, 1, 2))
+    rstd = torch.rsqrt((yf * yf).mean(dim=(0, 1, 2)) - mean * mean + 1e-5)
+    vecs = (mean, rstd, torch.rand(c, generator=gen, device=dev) + 0.5,
+            _rand(gen, (c,), dev, 0.3))
+    dx, dgam, dbet = bn_relu_bwd(y, g, *vecs)
+    sums, = _repeat(lambda: bn_relu_bwd_sums(y, g, *vecs))
+    assert torch.equal(sums, torch.cat([dbet, dgam]))
+    assert torch.equal(bn_relu_bwd_dx(y, g, *vecs, sums, m), dx)
+    total = sums + _rand(gen, (2 * c,), dev, float(m) ** 0.5)
+    got = bn_relu_bwd_dx(y, g, *vecs, total, 3 * m)
+    _close(got, bn_relu_bwd_dx_plain(y, g, *vecs, total, 3 * m), dtype)
+    with pytest.raises(ValueError, match="m_total"):
+        bn_relu_bwd_dx(y, g, *vecs, sums, m - 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,cin,cout", [(1, 5, 7, 24, 10), (2, 22, 40, 128, 64),
                                             (1, 1, 1, 8, 3), (2, 45, 80, 64, 32)])
 def test_deconv_backward_edges(dev, dtype, n, h, w, cin, cout):

@@ -118,9 +118,16 @@ def test_port_cli_matches_jax_cli(workspace, tmp_path):
     (["--num_devices", "2"], "multi-device"),
 ])
 def test_port_cli_names_unported_flags(workspace, tmp_path, extra, match):
+    """An unported option is refused by name.  Multi-device predict is
+    ported (``tests/test_torch_predict_multihost.py``): its flags are
+    refused, before any model is built, only where they are incomplete
+    (a host count or a coordinator alone) or ask for more cards than the
+    machine has (``--num_devices 2`` on CUDA here)."""
     root, img_dir, cp_dir = workspace
-    argv = _argv(img_dir, cp_dir / "CP_epoch1.pth", tmp_path) + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=match):
+    device = "cuda" if "--num_devices" in extra else "cpu"
+    argv = _argv(img_dir, cp_dir / "CP_epoch1.pth", tmp_path) + ["--device", device]
+    refused = NotImplementedError if match != "multi-device" else (ValueError, SystemExit)
+    with pytest.raises(refused, match=match):
         port_process(argv + extra)
 
 

@@ -391,11 +391,16 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
 
     base = ["--img_dir", "f", "--mask_dir", "m", "--anno_dir", "a", "--cp_dir",
             str(tmp_path), "--device", "cpu"]
-    for extra, match in ((["--num_devices", "2"], "step 7"),
-                         (["--num_hosts", "2"], "step 7"),
-                         (["--load", "CP_epoch1.orbax"], "export_torch_checkpoint"),
+    for extra, match in ((["--load", "CP_epoch1.orbax"], "export_torch_checkpoint"),
                          (["--resnet_pretrained", "resnet34"], "download")):
         with pytest.raises(NotImplementedError, match=match):
+            train_cli.main(base + extra)
+    # multi-device training is ported (tests/test_torch_data_parallel.py); its
+    # flags are refused before any rank starts only where they cannot run
+    for extra, match in ((["--num_devices", "2", "--batchsize", "3"], "not divisible"),
+                         (["--num_hosts", "2"], "--coordinator host:port"),
+                         (["--num_devices", "2", "--device", "cuda"], "2 CUDA devices")):
+        with pytest.raises((ValueError, SystemExit), match=match):
             train_cli.main(base + extra)
 
 
