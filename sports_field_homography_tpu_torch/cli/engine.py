@@ -20,6 +20,7 @@ from ..models import Reconstructor, ReconstructorConfig
 from ..models.layers import init_weights
 from ..ops.fold_bn import fold_batchnorm
 from ..ops.warp import template_value_table
+from ..utils import trace
 from ..utils.config import resolve_asset
 
 __all__ = ["ModelBundle", "build_model", "check_loadable", "load_state_dict", "predict_fn",
@@ -121,15 +122,16 @@ def predict_fn(bundle: ModelBundle, consistency: bool,
                  if "poi" in keep else None)
 
     def fn(frames: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = frames.float() / 255.0 if frames.dtype == torch.uint8 else frames.float()
-        preds = bundle.model.predict(x, bundle.court_labels,
-                                     bundle.value_table, consistency=consistency,
-                                     warp_mask="warp_mask" in keep, court_poi=court_poi)
-        if "segm_mask" in keep and "logits" in preds:
-            preds["segm_mask"] = preds["logits"].argmax(dim=-1).to(torch.uint8)
-        if "warp_mask" in preds:
-            preds["warp_mask"] = preds["warp_mask"].to(torch.uint8)
-        return {k: v for k, v in preds.items() if k in keep}
+        with trace.span("predict.batch"):
+            x = frames.float() / 255.0 if frames.dtype == torch.uint8 else frames.float()
+            preds = bundle.model.predict(x, bundle.court_labels,
+                                         bundle.value_table, consistency=consistency,
+                                         warp_mask="warp_mask" in keep, court_poi=court_poi)
+            if "segm_mask" in keep and "logits" in preds:
+                preds["segm_mask"] = preds["logits"].argmax(dim=-1).to(torch.uint8)
+            if "warp_mask" in preds:
+                preds["warp_mask"] = preds["warp_mask"].to(torch.uint8)
+            return {k: v for k, v in preds.items() if k in keep}
 
     return fn
 

@@ -53,6 +53,7 @@ from ..data.loader import Loader, device_prefetch
 from ..data.png import encode_png
 from ..parallel.distributed import initialize_distributed, resolve_hosts
 from ..parallel.mesh import check_batch_divisible, local_devices, shard_predict_fn
+from ..utils import trace
 from ..utils.config import get_prediction_args, parse_config, replace_args
 from ..utils.logger import get_logger
 from ..utils.postprocess import draw_text, onehot_to_image, overlay
@@ -90,15 +91,16 @@ def _to_host(preds, device):
     """Start copying ``preds`` to the host; returns (tensors, event or
     None).  On CUDA the copies go to pinned memory and an event marks
     their completion."""
-    if device.type != "cuda":
-        return {k: v.clone() for k, v in preds.items()}, None
-    host = {}
-    for k, v in preds.items():
-        host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-        host[k].copy_(v, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
+    with trace.span("predict.to_host"):
+        if device.type != "cuda":
+            return {k: v.clone() for k, v in preds.items()}, None
+        host = {}
+        for k, v in preds.items():
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
 
 
 def _cv2_nearest_index(src: int, dst: int) -> np.ndarray:

@@ -30,6 +30,7 @@ from ..geometry.homography import transform_poi
 from ..geometry.warp import warp_bilinear
 from ..ops.resize import resize_nearest
 from ..ops.warp import warp_nearest
+from ..utils import trace
 from .layers import nchw, nhwc
 from .losses import cross_entropy_map
 from .resnet import ResNetSTN, resnet_models
@@ -172,21 +173,25 @@ class Reconstructor(nn.Module):
         ret = {}
         logits = uv = None
         if cfg.use_unet:
-            logits, _, uv = self.forward_unet(x)
+            with trace.span("model.unet"):
+                logits, _, uv = self.forward_unet(x)
             ret["logits"] = logits
             if uv is not None:
                 ret["uv"] = uv
         if cfg.use_resnet:
-            theta = self.resnet_reg(self._stn_input(x, logits, uv))
+            with trace.span("model.stn"):
+                theta = self.resnet_reg(self._stn_input(x, logits, uv))
             ret["theta"] = theta
             ret["poi"] = transform_poi(theta, court_poi)
             if cfg.use_warper and cfg.warp_with_nearest:
                 if court_labels is None:
                     raise ValueError("warp_with_nearest needs court_labels")
-                ret["warp_mask"] = self.warp(theta, *court_labels)
+                with trace.span("model.warp"):
+                    ret["warp_mask"] = self.warp(theta, *court_labels)
             elif cfg.use_warper:
                 w, h = cfg.warp_size
-                ret["warp_mask"] = warp_bilinear(court_template, theta, (h, w))
+                with trace.span("model.warp"):
+                    ret["warp_mask"] = warp_bilinear(court_template, theta, (h, w))
         return ret
 
     def predict(self, x: torch.Tensor, court_labels: Optional[torch.Tensor] = None,
@@ -215,11 +220,13 @@ class Reconstructor(nn.Module):
         ret = {}
         logits = uv = None
         if cfg.use_unet:
-            logits, _, uv = self.forward_unet(x)
+            with trace.span("model.unet"):
+                logits, _, uv = self.forward_unet(x)
             ret["logits"] = logits
         if not cfg.use_resnet:
             return ret
-        theta = self.resnet_reg(self._stn_input(x, logits, uv))
+        with trace.span("model.stn"):
+            theta = self.resnet_reg(self._stn_input(x, logits, uv))
         ret["theta"] = theta
         if court_poi is not None:
             ret["poi"] = transform_poi(theta, court_poi)
@@ -227,15 +234,17 @@ class Reconstructor(nn.Module):
             return ret
         score = consistency and cfg.use_unet
         grid = tuple(logits.shape[1:3]) if score else None
-        if warp_mask:
-            # one full-grid K1 serves both outputs
-            labels = self.warp(theta, court_labels, values) * cfg.mask_classes
-            ret["warp_mask"] = labels
-            wm = resize_nearest(labels, grid) if score else None
-        elif score:
-            w, h = cfg.warp_size
-            sample = None if grid == (h, w) else grid
-            wm = self.warp(theta, court_labels, values, sample_hw=sample) * cfg.mask_classes
-        if score:
-            ret["consist_score"] = cross_entropy_map(logits, wm.to(torch.int32)).mean(dim=(1, 2))
+        with trace.span("model.warp"):
+            if warp_mask:
+                # one full-grid K1 serves both outputs
+                labels = self.warp(theta, court_labels, values) * cfg.mask_classes
+                ret["warp_mask"] = labels
+                wm = resize_nearest(labels, grid) if score else None
+            elif score:
+                w, h = cfg.warp_size
+                sample = None if grid == (h, w) else grid
+                wm = self.warp(theta, court_labels, values, sample_hw=sample) * cfg.mask_classes
+            if score:
+                ret["consist_score"] = cross_entropy_map(
+                    logits, wm.to(torch.int32)).mean(dim=(1, 2))
         return ret

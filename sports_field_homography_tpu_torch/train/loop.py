@@ -42,6 +42,7 @@ from ..models.losses import (cross_entropy_map, focal_loss_map, mse_map,
                              per_sample_weighted, reprojection_loss,
                              smooth_l1_map)
 from ..parallel.mesh import average_gradients
+from ..utils import trace
 from ..utils.checkpoint import AsyncSaver, load_train_state, save_checkpoint
 from .evaluate import eval_reconstructor, norm_img
 from .optim import clip_gradients, make_optimizer, make_scheduler
@@ -179,41 +180,45 @@ def train_step(model, optimizer, batch: Union[Batch, List[Batch]], step_no: int,
     the parameter gradients before clipping (averaged over the ranks), by
     parameter name.
     """
-    micro = list(batch) if isinstance(batch, (list, tuple)) else [batch]
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    logs = None
-    for mb in micro:
-        shard = None
+    with trace.span("train.step"):
+        micro = list(batch) if isinstance(batch, (list, tuple)) else [batch]
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        logs = None
+        for mb in micro:
+            shard = None
+            if replicas is not None:
+                n_local = int(mb["image"].shape[0])
+                w_sum = mb["weight"].reshape(-1).float().sum()
+                n_total, w_total = replicas.set_batch(n_local, w_sum)
+                shard = (n_local * replicas.world / n_total, w_total / n_total)
+            preds = model(norm_img(mb["image"]), court_template, court_poi)
+            with trace.span("train.loss"):
+                total, lg = compute_losses(preds, mb, step_no, cfg, model.config.mask_classes,
+                                           shard=shard)
+            with trace.span("train.backward"):
+                total.backward()
+            logs = lg if logs is None else {k: logs[k] + v for k, v in lg.items()}
+        if len(micro) > 1:
+            k = len(micro)
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(k)
+            logs = {name: v / k for name, v in logs.items()}
         if replicas is not None:
-            n_local = int(mb["image"].shape[0])
-            w_sum = mb["weight"].reshape(-1).float().sum()
-            n_total, w_total = replicas.set_batch(n_local, w_sum)
-            shard = (n_local * replicas.world / n_total, w_total / n_total)
-        preds = model(norm_img(mb["image"]), court_template, court_poi)
-        total, lg = compute_losses(preds, mb, step_no, cfg, model.config.mask_classes,
-                                   shard=shard)
-        total.backward()
-        logs = lg if logs is None else {k: logs[k] + v for k, v in lg.items()}
-    if len(micro) > 1:
-        k = len(micro)
-        for p in model.parameters():
-            if p.grad is not None:
-                p.grad.div_(k)
-        logs = {name: v / k for name, v in logs.items()}
-    if replicas is not None:
-        names = list(logs)
-        *summed, votes = average_gradients(
-            model.parameters(), replicas, [logs[n] for n in names] + [float(stop)])
-        logs = {n: v / replicas.world for n, v in zip(names, summed)}
-        logs["stop"] = votes > 0
-    grads = None
-    if return_grads:
-        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
-                 if p.grad is not None}
-    clip_gradients(model.parameters())
-    optimizer.step()
-    return (logs, grads) if return_grads else logs
+            names = list(logs)
+            *summed, votes = average_gradients(
+                model.parameters(), replicas, [logs[n] for n in names] + [float(stop)])
+            logs = {n: v / replicas.world for n, v in zip(names, summed)}
+            logs["stop"] = votes > 0
+        grads = None
+        if return_grads:
+            grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                     if p.grad is not None}
+        with trace.span("train.update"):
+            clip_gradients(model.parameters())
+            optimizer.step()
+        return (logs, grads) if return_grads else logs
 
 
 def _accumulation_groups(batches, k: int, on_partial):
