@@ -36,13 +36,25 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 def bn_eval(x: torch.Tensor, bn: nn.BatchNorm2d, dim: int = 1) -> torch.Tensor:
     """Eval BatchNorm over channel axis ``dim``: computed in f32 as
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast back to x's
-    dtype (the JAX package's ``batch_norm_apply``)."""
+    dtype (the JAX package's ``batch_norm_apply``).
+
+    A BN that ``ops/fold_bn.fold_pair`` has folded (``bn.folded``) does not
+    come here through ``bn_apply``: its scale is 1, its mean 0 and
+    ``var + eps`` 1 in f32, so this formula is its additive term alone,
+    which ``bn_apply`` adds to the conv's output in place, in f32 with one
+    rounding to x's dtype: the same numbers in one pass.  ``bn_eval.full``
+    and ``bn_eval.folded`` count the eval BNs applied either way."""
+    bn_eval.full += 1
     shape = [1] * x.dim()
     shape[dim] = -1
     inv = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
     y = ((x.float() - bn.running_mean.float().view(shape)) * inv.view(shape)
          + bn.bias.float().view(shape))
     return y.to(x.dtype)
+
+
+bn_eval.full = 0
+bn_eval.folded = 0
 
 
 @torch.no_grad()
@@ -90,7 +102,18 @@ def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d, dim: int = 1, sync=None) -> to
 
 def bn_apply(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool,
              dim: int = 1, sync=None) -> torch.Tensor:
-    return bn_train(x, bn, dim, sync) if training else bn_eval(x, bn, dim)
+    """``bn_train`` in training mode, else ``bn_eval``; in eval mode a
+    folded BN (``bn.folded``, set by ``ops/fold_bn.fold_pair``) adds its f32
+    additive term to ``x`` in place, so ``x`` must be the caller's own fresh
+    tensor (a conv's output)."""
+    if training:
+        return bn_train(x, bn, dim, sync)
+    if not getattr(bn, "folded", False):
+        return bn_eval(x, bn, dim)
+    bn_eval.folded += 1
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    return x.add_(bn.bias.float().view(shape))
 
 
 def set_bn_sync(model: nn.Module, sync) -> nn.Module:

@@ -5,7 +5,9 @@ channels and a 9-way linear head that emits a 3x3 homography.  It runs
 on cuDNN (the JAX package has no Pallas kernel here) on channels-last
 views; BN is computed in f32 and cast back, as in the JAX package, with
 batch moments and a running-stat update in training mode
-(``layers.bn_train``).  Every JAX variant is here: resnet18/34 on the
+(``layers.bn_train``); in eval mode a BN folded into its conv
+(``ops/fold_bn``) is one in-place add on the conv's output
+(``layers.bn_apply``).  Every JAX variant is here: resnet18/34 on the
 basic block, resnet50/101/152, resnext50_32x4d/101_32x8d and
 wide_resnet50_2/101_2 on the bottleneck, and the reference's ``resnet52``
 alias for resnet152.

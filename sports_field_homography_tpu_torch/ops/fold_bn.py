@@ -9,6 +9,13 @@ BN is then reset to scale 1, mean 0, var 1 - eps (var + eps rounds to
 exactly 1 in float32), so eval BN degenerates to a per-channel add: zero
 after a biased conv, the additive term after a bias-free one (ResNet).
 The DoubleConv prologue still carries the ReLU.
+
+``fold_pair`` marks the BN it folds (``bn.folded = True``, a plain
+attribute that survives ``.to()`` and ``copy.deepcopy``), so the ResNet's
+eval path (``models/layers.bn_apply``) applies it as one in-place add of
+the f32 additive term on the conv's output instead of the whole f32
+formula; the numbers are the same.  The UNet's path (K2's prologue, K7-fwd's
+norm) does not read the mark and takes the folded buffers as before.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ def fold_pair(conv: nn.Module, bn: nn.BatchNorm2d) -> None:
     bn.weight.fill_(1.0)
     bn.running_mean.zero_()
     bn.running_var.fill_(1.0 - _EPS)
+    bn.folded = True
 
 
 def fold_batchnorm(model: nn.Module) -> nn.Module:

@@ -1002,3 +1002,59 @@ def test_device_prefetch_leaves_orig_img_on_the_host(dev):
     for i, b in enumerate(out):
         assert b["image"].device.type == "cuda" and int(b["image"][0, 0, 0, 0]) == i
         assert isinstance(b["orig_img"], np.ndarray) and b["orig_img"][0, 0, 0, 0] == i
+
+
+@pytest.mark.parametrize("unet_bilinear,resnet,n_bn", [(False, "resnet34", 36),
+                                                       (True, "resnet50", 53)])
+def test_folded_stn_bn_add_bit_equal_at_batch_32(dev, unet_bilinear, resnet, n_bn):
+    """The benchmark's two predict models (deconv UNet + ResNet34, bilinear
+    UNet + ResNet-50; 640x360, bf16, BN folded, a 1280x720 warp grid) at
+    batch 32: every STN BN takes the one-pass add (``bn_eval.folded``), and
+    theta, the score and K1's labels equal those of the same model with the
+    fold's mark cleared (the whole eval formula), bit for bit."""
+    import copy
+    import os
+
+    from torch import nn
+
+    from sports_field_homography_tpu_torch.data.assets import open_court_template
+    from sports_field_homography_tpu_torch.models import Reconstructor, ReconstructorConfig
+    from sports_field_homography_tpu_torch.models.layers import bn_eval, init_weights
+    from sports_field_homography_tpu_torch.ops.fold_bn import fold_batchnorm
+    from sports_field_homography_tpu_torch.ops.warp import template_value_table
+
+    cfg = ReconstructorConfig(target_size=(640, 360), unet_size=(640, 360),
+                              warp_size=(1280, 720), unet_bilinear=unet_bilinear,
+                              resnet_name=resnet, resnet_input="img+mask")
+    model = Reconstructor(cfg, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(48)
+    init_weights(model, gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+        reg = model.resnet_reg.reg.weight
+        reg.copy_(torch.randn(reg.shape, generator=gen) * 1e-4)
+    model = fold_batchnorm(model).to(dev).eval()
+    full = copy.deepcopy(model)
+    for m in full.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.folded = False
+    assets = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
+    labels = torch.from_numpy(open_court_template(
+        os.path.join(assets, "mask_ncaa_v4_nc4_m_onehot.png"), 4, size=(1280, 720))).to(dev)
+    values = template_value_table(labels.cpu().numpy(), 4).to(dev)
+    x = torch.rand((32, 360, 640, 3), generator=torch.Generator(device=dev).manual_seed(49),
+                   device=dev)
+    with torch.inference_mode():
+        f0, n0 = bn_eval.folded, bn_eval.full
+        got = model.predict(x, labels, values, consistency=True, warp_mask=True)
+        counts = (bn_eval.folded - f0, bn_eval.full - n0)
+        want = full.predict(x, labels, values, consistency=True, warp_mask=True)
+    assert counts == (n_bn, 0)
+    assert (got["theta"] - torch.eye(3, device=dev)).abs().max() > 1e-4
+    for key in ("theta", "consist_score", "warp_mask", "logits"):
+        assert torch.equal(got[key], want[key]), key
