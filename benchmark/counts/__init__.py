@@ -2,19 +2,27 @@
 
 Every convolution, transposed convolution and linear layer of one frame's
 forward pass is listed with its kind, its multiply-adds and its tensor
-sizes.  A FLOP is two per multiply-add.  Bytes count each input element
-read once, each output element written once and the weights once, at the
-element sizes given: what any kernel computing the operation must move at
-the least, whatever it reads again.  BatchNorm, activations, pooling and
-the warp are not counted as FLOPs.
+sizes, read from the plain reference (``reference/model.py``) run on the
+meta device: the shapes are written once, there.  A FLOP is two per
+multiply-add.  Bytes count each input element read once, each output
+element written once and the weights once, at the element sizes given:
+what any kernel computing the operation must move at the least, whatever
+it reads again.  BatchNorm, activations, pooling and the warp are not
+counted as FLOPs.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
-from typing import List
+from typing import Callable, List
 
-__all__ = ["Layer", "unet_layers", "resnet_layers", "model_layers", "forward_flops",
-           "layer_work", "conv3x3_work", "wgrad3x3_work", "bound_seconds"]
+import torch
+from torch import nn
+
+import inputs
+
+__all__ = ["Layer", "module_layers", "model_layers", "forward_flops", "layer_work",
+           "conv3x3_work", "wgrad3x3_work", "bound_seconds"]
 
 
 @dataclass(frozen=True)
@@ -27,91 +35,59 @@ class Layer:
     weights: int       # weight elements
 
 
-def _conv(name, kind, h, w, cin, cout, k, stride=1, pad=0):
-    ho = (h + 2 * pad - k) // stride + 1
-    wo = (w + 2 * pad - k) // stride + 1
-    return Layer(name, kind, ho * wo * cin * cout * k * k, h * w * cin, ho * wo * cout,
-                 cin * cout * k * k), ho, wo
+def _layer(name: str, kind: str, mod: nn.Module, x: torch.Tensor, y: torch.Tensor) -> Layer:
+    if isinstance(mod, nn.ConvTranspose2d):      # every input element feeds Cout x kh x kw
+        macs = x.numel() * (mod.out_channels // mod.groups) * mod.weight[0, 0].numel()
+    elif isinstance(mod, nn.Conv2d):
+        macs = y.numel() * mod.weight[0].numel()       # (Cin / groups) x kh x kw an output
+    else:
+        macs = y.numel() * mod.in_features
+    return Layer(name, kind, macs, x.numel(), y.numel(), mod.weight.numel())
 
 
-def unet_layers(h: int, w: int, bilinear: bool, classes: int) -> List[Layer]:
-    """milesial's UNet: widths 64..1024 (the deepest halved when
-    bilinear); the decoder convs read the skip and the up-sampled map as
-    one concatenated input."""
-    f = 2 if bilinear else 1
+def module_layers(model: nn.Module, kind: Callable[[str, nn.Module], str],
+                  run: Callable[[], object]) -> List[Layer]:
+    """The layers of ``model`` that ``run()`` calls, in the order they run;
+    ``kind(name, module)`` names each one's kind."""
     out: List[Layer] = []
-
-    def double(prefix, hh, ww, cin, cout, mid=None, first_kind="conv3x3"):
-        mid = mid or cout
-        out.append(_conv(f"{prefix}.0", first_kind, hh, ww, cin, mid, 3, 1, 1)[0])
-        out.append(_conv(f"{prefix}.3", "conv3x3", hh, ww, mid, cout, 3, 1, 1)[0])
-
-    sizes = [(h, w)]
-    double("inc", h, w, 3, 64, first_kind="stem")
-    chans = [64]
-    for i, cout in enumerate((128, 256, 512, 1024 // f)):
-        hh, ww = sizes[-1][0] // 2, sizes[-1][1] // 2
-        sizes.append((hh, ww))
-        double(f"down{i + 1}", hh, ww, chans[-1], cout)
-        chans.append(cout)
-    cur = chans[-1]
-    for i, (cin, cout) in enumerate(((1024, 512 // f), (512, 256 // f), (256, 128 // f),
-                                     (128, 64))):
-        (hs, ws), (hl, wl) = sizes[3 - i], sizes[4 - i]
-        if bilinear:
-            double(f"up{i + 1}", hs, ws, cin, cout, mid=cin // 2)
-        else:
-            out.append(Layer(f"up{i + 1}.up", "deconv2x2", 4 * hl * wl * cur * (cin // 2),
-                             hl * wl * cur, 4 * hl * wl * (cin // 2), cur * (cin // 2) * 4))
-            double(f"up{i + 1}", hs, ws, cin, cout)
-        cur = cout
-    out.append(_conv("outc", "head", h, w, 64, classes, 1)[0])
+    hooks = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            def hook(m, a, y, name=name):
+                out.append(_layer(name, kind(name, m), m, a[0], y))
+            hooks.append(mod.register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in hooks:
+            h.remove()
     return out
 
 
-_RESNETS = {"resnet18": ("basic", (2, 2, 2, 2)), "resnet34": ("basic", (3, 4, 6, 3)),
-            "resnet50": ("bottleneck", (3, 4, 6, 3)), "resnet101": ("bottleneck", (3, 4, 23, 3))}
-
-
-def resnet_layers(h: int, w: int, in_channels: int, name: str) -> List[Layer]:
-    """torchvision's ResNet (v1.5 Bottleneck) on an (h, w) input, with a
-    9-way head."""
-    block, counts = _RESNETS[name]
-    exp = 1 if block == "basic" else 4
-    out: List[Layer] = []
-    layer, h, w = _conv("conv0", "stn_conv", h, w, in_channels, 64, 7, 2, 3)
-    out.append(layer)
-    h, w = (h + 2 - 3) // 2 + 1, (w + 2 - 3) // 2 + 1          # max-pool 3, stride 2, pad 1
-    inplanes = 64
-    for stage, (planes, n) in enumerate(zip((64, 128, 256, 512), counts)):
-        for b in range(n):
-            s = 2 if (b == 0 and stage > 0) else 1
-            p = f"layer{stage + 1}.{b}"
-            if block == "basic":
-                l1, ho, wo = _conv(f"{p}.conv1", "stn_conv", h, w, inplanes, planes, 3, s, 1)
-                l2, _, _ = _conv(f"{p}.conv2", "stn_conv", ho, wo, planes, planes, 3, 1, 1)
-                out += [l1, l2]
-            else:
-                l1, _, _ = _conv(f"{p}.conv1", "stn_conv", h, w, inplanes, planes, 1)
-                l2, ho, wo = _conv(f"{p}.conv2", "stn_conv", h, w, planes, planes, 3, s, 1)
-                l3, _, _ = _conv(f"{p}.conv3", "stn_conv", ho, wo, planes, planes * 4, 1)
-                out += [l1, l2, l3]
-            if b == 0 and (s != 1 or inplanes != planes * exp):
-                out.append(_conv(f"{p}.downsample", "stn_conv", h, w, inplanes,
-                                 planes * exp, 1, s)[0])
-            inplanes = planes * exp
-            h, w = ho, wo
-    out.append(Layer("reg", "stn_linear", inplanes * 9, inplanes, 9, inplanes * 9))
-    return out
+def _kind(name: str, mod: nn.Module) -> str:
+    """A layer's kind from its place in the reference: the UNet's first conv
+    is the stem, its ``up<i>.up`` the 2x2 up-convs, ``outc`` the 1x1 head,
+    every other UNet conv a 3x3; the ResNet's convs and head."""
+    if name.startswith("resnet_reg."):
+        return "stn_linear" if isinstance(mod, nn.Linear) else "stn_conv"
+    if name == "inc.double_conv.0":
+        return "stem"
+    if re.fullmatch(r"up\d+\.up", name):
+        return "deconv2x2"
+    return "head" if name.startswith("outc") else "conv3x3"
 
 
 def model_layers(model_cfg: dict) -> List[Layer]:
-    """One frame's layers for a configuration file's ``model`` section."""
-    w, h = model_cfg["unet_size"]
-    classes = model_cfg["mask_classes"]
-    tw, th = model_cfg["target_size"]
-    return (unet_layers(h, w, model_cfg["unet_bilinear"], classes)
-            + resnet_layers(th, tw, classes + 3, model_cfg["resnet_name"]))
+    """One frame's layers for a configuration file's ``model`` section: the
+    reference's UNet at ``unet_size`` and its ResNet on the logits and the
+    image at ``target_size``."""
+    model = inputs.reference_model(model_cfg, "meta")
+    (w, h), (tw, th) = model_cfg["unet_size"], model_cfg["target_size"]
+    c = model_cfg["mask_classes"] + 3
+    with torch.device("meta"):
+        x, xs = torch.empty(1, 3, h, w), torch.empty(1, c, th, tw)
+    return module_layers(model, _kind, lambda: (model.unet(x), model.resnet_reg(xs)))
 
 
 def forward_flops(model_cfg: dict) -> int:

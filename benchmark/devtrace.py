@@ -8,7 +8,8 @@ on the card (the union of kernel, copy and set intervals), the time per
 kernel group (``kernel_groups/*.json``, first match by ``order``), the
 number of kernels, and each idle gap on the card charged to the host span
 that was open at its middle.  A spin kernel launched right after a
-synchronisation at a known host time ties the trace's clock to the host's.
+synchronisation at a known host time ties the trace's clock to the host's;
+``window_ns`` is the window on the trace's clock.
 """
 from __future__ import annotations
 
@@ -147,8 +148,8 @@ class DeviceTrace:
             busy += cur_e - cur_s
         if hi > cur_e:
             gaps.append((cur_e, hi))
-        return {"busy_s": busy * 1e-9, "window_s": (hi - lo) * 1e-9, "kernels": kernels,
-                "groups": dict(by_group), "op_seconds": dict(op_seconds),
+        return {"busy_s": busy * 1e-9, "window_s": (hi - lo) * 1e-9, "window_ns": (lo, hi),
+                "kernels": kernels, "groups": dict(by_group), "op_seconds": dict(op_seconds),
                 "idle_by_span": _charge_gaps(gaps, offset, spans)}
 
 

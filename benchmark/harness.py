@@ -16,6 +16,12 @@ A driver calls ``r.begin_window()`` when set-up ends, ``r.end_window()``
 once the window's work has drained, ``r.record_memory()`` before it frees
 the program, and ``r.compare(readings)`` with the numbers it read against
 the reference: those that the cell's limits file names are compared.
+
+With ``--trace 1`` the window is traced on the device and the program
+records its own phase spans (``program.start_spans``); each kernel's
+device time goes to the innermost span open at its launch
+(``spantrace``), and each idle gap to the innermost span open at its
+middle.  With ``--trace 0`` neither is recorded.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ import time
 from pathlib import Path
 
 import devtrace as bmtrace
+import program
+import spantrace
 
 __all__ = ["ROOT", "FORBIDDEN", "forbidden_modules", "load_benchmark", "Cell", "resolve",
            "load_module", "Run", "result_line", "peaks_for", "WriteWatch"]
@@ -150,6 +158,7 @@ class Run:
         self.device = device
         self.t_process_ns = t_process_ns
         self.spans = bmtrace.Spans(enabled=self.trace)
+        self.program_spans = []
         self.counters = {}
         self.metrics = {}
         self.checks = {}
@@ -165,11 +174,13 @@ class Run:
 
     # -- called by the driver
     def begin_window(self) -> int:
-        """End of set-up: starts the device trace (``--trace 1``) and
-        returns the window's start on the host clock (perf_counter_ns)."""
+        """End of set-up: starts the device trace and the program's spans
+        (``--trace 1``) and returns the window's start on the host clock
+        (perf_counter_ns)."""
         if self.trace:
             self.device_trace = bmtrace.DeviceTrace()
             self.device_trace.start()
+            program.start_spans()
         t0 = time.perf_counter_ns()
         self.setup_s = (t0 - self.t_process_ns) * 1e-9
         self.t_window = [t0, None]
@@ -185,6 +196,7 @@ class Run:
         self.t_window[1] = t1
         if self.device_trace is not None:
             self.device_trace.stop()
+            self.program_spans = program.stop_spans()
         return t1
 
     def record_memory(self):
@@ -211,10 +223,26 @@ class Run:
 
     # -- after the driver
     def reduce_trace(self):
-        if self.device_trace is not None:
-            t0, t1 = self.t_window
-            self.trace_summary = self.device_trace.reduce(t0, t1, self.cell.groups, self.spans)
-            self.device_trace = None
+        """The window's device numbers (``DeviceTrace.reduce``), with the
+        program's spans among the driver's, and ``device_by_span``: the
+        device seconds by the innermost span open at each launch, and
+        ``device_unattributed_s``: those with no launch record."""
+        if self.device_trace is None:
+            return
+        dt, self.device_trace = self.device_trace, None
+        for name, a, b, _, _ in self.program_spans:
+            if b is not None:
+                self.spans.add(name, a, b)
+        t0, t1 = self.t_window
+        ts = dt.reduce(t0, t1, self.cell.groups, self.spans)
+        device, launches = spantrace.trace_events(dt.prof)
+        offset = spantrace.host_offset(device, launches, dt.t_marker)
+        if offset is None:
+            raise RuntimeError("device trace: the clock marker's launch record is missing")
+        lo, hi = ts["window_ns"]
+        ts["device_by_span"], ts["device_unattributed_s"] = spantrace.device_by_span(
+            device, launches, offset, self.spans.items, lo, hi)
+        self.trace_summary = ts
 
     def per_layer_metrics(self):
         out = {}

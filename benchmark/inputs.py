@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 from pathlib import Path
 
 import numpy as np
@@ -45,6 +46,17 @@ def reference_model(model_cfg: dict, device="meta") -> Reconstructor:
                              model_cfg["resnet_name"])
 
 
+def _residual_last(model) -> set:
+    """The last BatchNorm of each residual branch: the highest-numbered
+    ``bn<k>`` of each ``resnet_reg.layer<s>.<b>``."""
+    last = {}
+    for name, _ in model.named_modules():
+        m = re.fullmatch(r"(resnet_reg\.layer\d+\.\d+)\.bn(\d+)", name)
+        if m:
+            last[m.group(1)] = max(last.get(m.group(1), 0), int(m.group(2)))
+    return {f"{block}.bn{k}" for block, k in last.items()}
+
+
 def _fan_in(shape, transposed):
     if transposed:              # ConvTranspose2d (Cin, Cout, kh, kw): one tap per output
         return shape[0]
@@ -71,7 +83,7 @@ def seeded_state_dict(model_cfg: dict, seed: int, device) -> dict:
     normal = torch.randn(n_total, generator=gen, device=device)
     uniform = torch.rand(n_total, generator=gen, device=device)
     out, pos = {}, 0
-    residual_last = ("bn2" if model_cfg["resnet_name"] in ("resnet18", "resnet34") else "bn3")
+    residual_last = _residual_last(skeleton)
     for key, shape in shapes.items():
         n = math.prod(shape)
         nrm, uni = normal[pos:pos + n].view(shape), uniform[pos:pos + n].view(shape)
@@ -89,8 +101,7 @@ def seeded_state_dict(model_cfg: dict, seed: int, device) -> dict:
         elif key == "resnet_reg.reg.bias":
             t = torch.eye(3, device=device).reshape(9) + 0.01 * nrm
         elif is_bn and leaf == "weight":
-            last = module.startswith("resnet_reg.layer") and module.endswith(residual_last)
-            t = u(0.1, 0.4) if last else u(0.5, 1.5)
+            t = u(0.1, 0.4) if module in residual_last else u(0.5, 1.5)
         elif is_bn and leaf == "bias":
             t = u(-0.2, 0.2)
         elif leaf == "running_mean":

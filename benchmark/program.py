@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 __all__ = ["load_kernels", "predict_bundle", "predict_program", "to_host",
-           "train_program", "PACKAGE"]
+           "train_program", "start_spans", "stop_spans", "PACKAGE"]
 
 PACKAGE = "sports_field_homography_tpu_torch"
 
@@ -85,3 +85,17 @@ def train_program(model_cfg: dict, train_cfg: dict, sd: dict, device, batch_size
         "reproj_lambda", "consist_lambda", "consist_start_iter")}, batch_size=batch_size)
     return model, opt, loss_cfg, train_step
 
+
+def start_spans():
+    """Start recording the program's phase spans (``utils/trace.start``)."""
+    from sports_field_homography_tpu_torch.utils import trace
+
+    trace.start()
+
+
+def stop_spans() -> list:
+    """Stop recording; the records ``(name, t0_ns, t1_ns, parent, unit)``,
+    on ``perf_counter_ns`` (``utils/trace.stop``)."""
+    from sports_field_homography_tpu_torch.utils import trace
+
+    return trace.stop()

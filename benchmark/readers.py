@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import counts
 
-__all__ = ["idle_share", "mfu", "op_roofline", "group_share", "launches_per_unit"]
+__all__ = ["idle_share", "mfu", "op_roofline", "span_share", "launches_per_unit"]
 
 _DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
 _PEAK_KEY = {"bfloat16": "bf16_flops", "float16": "fp16_flops", "float32": "fp32_flops"}
@@ -58,12 +58,15 @@ def op_roofline(r, op: str, work):
     return 100.0 * least / seconds
 
 
-def group_share(r, groups):
-    """Percent of the card's busy time in the kernel groups named."""
+def span_share(r, name: str):
+    """Percent of the card's busy time in the kernels and copies launched
+    while the span ``name`` was the innermost one open (the program's
+    spans, recorded with ``--trace 1``)."""
     ts = _trace(r)
-    if ts is None or ts["busy_s"] <= 0:
+    seconds = (ts or {}).get("device_by_span", {}).get(name, 0.0)
+    if ts is None or ts["busy_s"] <= 0 or seconds <= 0:
         return None
-    return 100.0 * sum(ts["groups"].get(g, 0.0) for g in groups) / ts["busy_s"]
+    return 100.0 * seconds / ts["busy_s"]
 
 
 def launches_per_unit(r, key: str):

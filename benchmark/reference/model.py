@@ -5,7 +5,11 @@ UNet (milesial/Pytorch-UNet, deconv or ``bilinear=True``), a torchvision
 ResNet (BasicBlock or the v1.5 Bottleneck) with a 7x7 stem over the
 image and the UNet's logits and a 9-way head that emits a 3x3 homography,
 as the original reference (github.com/darkAlert/sports-field-homography)
-builds them.  Parameter names are that reference's, so one state dict
+builds them.  The trunks follow torchvision's definitions of the papers:
+ResNet (He et al., arXiv:1512.03385), ResNeXt (Xie et al.,
+arXiv:1611.05431: grouped 3x3 convs) and the wide ResNets (Zagoruyko &
+Komodakis, arXiv:1605.07146, as torchvision's ``wide_resnet*_2``: twice
+the Bottleneck's inner width).  Parameter names are that reference's, so one state dict
 loads here and into the system under test.  Nothing here imports the
 system under test.
 """
@@ -69,8 +73,10 @@ class OutConv(nn.Module):
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1, base_width=64):
         super().__init__()
+        if groups != 1 or base_width != 64:
+            raise ValueError("BasicBlock takes groups=1 and base_width=64 only")
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
@@ -86,15 +92,19 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
+    """1x1, 3x3 (the stride and the groups), 1x1 to ``planes * 4``; the
+    inner width is ``int(planes * base_width / 64) * groups``."""
+
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1, base_width=64):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        width = int(planes * base_width / 64) * groups
+        self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, groups=groups, bias=False)
+        self.bn2 = nn.BatchNorm2d(width)
+        self.conv3 = nn.Conv2d(width, planes * 4, 1, bias=False)
         self.bn3 = nn.BatchNorm2d(planes * 4)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
@@ -107,14 +117,26 @@ class Bottleneck(nn.Module):
         return self.relu(out + identity)
 
 
-RESNETS = {"resnet18": (BasicBlock, (2, 2, 2, 2)), "resnet34": (BasicBlock, (3, 4, 6, 3)),
-           "resnet50": (Bottleneck, (3, 4, 6, 3)), "resnet101": (Bottleneck, (3, 4, 23, 3))}
+# name -> (block, blocks a stage, groups, width per group)
+RESNETS = {
+    "resnet18": (BasicBlock, (2, 2, 2, 2), 1, 64),
+    "resnet34": (BasicBlock, (3, 4, 6, 3), 1, 64),
+    "resnet50": (Bottleneck, (3, 4, 6, 3), 1, 64),
+    "resnet101": (Bottleneck, (3, 4, 23, 3), 1, 64),
+    "resnet152": (Bottleneck, (3, 8, 36, 3), 1, 64),
+    "resnext50_32x4d": (Bottleneck, (3, 4, 6, 3), 32, 4),
+    "resnext101_32x8d": (Bottleneck, (3, 4, 23, 3), 32, 8),
+    "wide_resnet50_2": (Bottleneck, (3, 4, 6, 3), 1, 128),
+    "wide_resnet101_2": (Bottleneck, (3, 4, 23, 3), 1, 128),
+}
 
 
 class ResNetSTN(nn.Module):
     def __init__(self, name, in_channels):
         super().__init__()
-        block, layers = RESNETS[name]
+        if name not in RESNETS:
+            raise KeyError(f"no ResNet {name!r} in the reference; it builds {sorted(RESNETS)}")
+        block, layers, groups, base_width = RESNETS[name]
         self.conv0 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
@@ -130,7 +152,7 @@ class ResNetSTN(nn.Module):
                     ds = nn.Sequential(nn.Conv2d(inplanes, planes * block.expansion, 1, s,
                                                  bias=False),
                                        nn.BatchNorm2d(planes * block.expansion))
-                blocks.append(block(inplanes, planes, s, ds))
+                blocks.append(block(inplanes, planes, s, ds, groups, base_width))
                 inplanes = planes * block.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.reg = nn.Linear(512 * block.expansion, 9)

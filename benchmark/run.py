@@ -105,6 +105,10 @@ def main(argv=None) -> int:
           f"{line['attempted']}, failed {line['failed']} [{line['card']}]", file=sys.stderr)
     print(f"counters {json.dumps(r.counters)}", file=sys.stderr)
     print(f"readings {json.dumps(r.readings)}", file=sys.stderr)
+    if r.trace_summary is not None:
+        print(f"device_by_span {json.dumps(r.trace_summary['device_by_span'])} "
+              f"device_unattributed_s {r.trace_summary['device_unattributed_s']!r}",
+              file=sys.stderr)
     for name, c in checks.items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     sys.stderr.flush()

@@ -12,9 +12,10 @@ alone, not by thread: autograd launches the backward from its own thread
 while the caller's span stays open.  A kernel with no launch record is
 counted apart.
 
-``devtrace.DeviceTrace.reduce`` does not call this: a run that records the
-program's spans (``sports_field_homography_tpu_torch.utils.trace``) hands
-them here with the profiler, before the trace is reduced.
+``harness.Run.reduce_trace`` hands it the profiler of a ``--trace 1``
+window, with the driver's spans and the program's own
+(``sports_field_homography_tpu_torch.utils.trace``, recorded over the
+same window).
 """
 from __future__ import annotations
 

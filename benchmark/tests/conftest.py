@@ -27,7 +27,12 @@ TINY = {"predict.b32": {"pool": 16, "batch": 4, "warmup_batches": 1, "reference_
 def tiny_cell(workload: str):
     """The cell with its model at 64x36 in float32 (the port's CPU path)
     and its traffic cut to a few frames; limits as committed."""
-    cell = harness.Cell(harness.load_benchmark(REPO), REPO, workload)
+    return cut(harness.Cell(harness.load_benchmark(REPO), REPO, workload))
+
+
+def cut(cell):
+    """``cell`` cut as ``tiny_cell`` cuts: the widths kept, the sizes and
+    the traffic made small."""
     cell.config = copy.deepcopy(cell.config)
     model = cell.config["model"]
     model["target_size"] = model["unet_size"] = [64, 36]

@@ -1,6 +1,7 @@
 """The plain reference against the port's CPU path (its plain twins) at
 64x36 in float32, on the benchmark's own seeded weights and renders."""
 import copy
+import hashlib
 import json
 
 import numpy as np
@@ -17,13 +18,19 @@ SIZE = (64, 36)
 
 
 def _model_cfg(config):
+    """``<config>`` or ``<config>:<resnet>``, the configuration with another
+    of the port's trunks, at 64x36 in float32."""
+    config, _, resnet = config.partition(":")
     m = copy.deepcopy(json.loads((BENCH / "configs" / f"{config}.json").read_text())["model"])
     m["target_size"] = m["unet_size"] = list(SIZE)
     m["dtype"] = "float32"
+    if resnet:
+        m["resnet_name"] = resnet
     return m
 
 
-@pytest.mark.parametrize("config", ["flagship", "bilinear-r50"])
+@pytest.mark.parametrize("config", ["flagship", "bilinear-r50", "flagship:resnext50_32x4d",
+                                    "flagship:wide_resnet50_2", "flagship:resnet152"])
 def test_predict_matches_the_port(config):
     model_cfg = _model_cfg(config)
     labels, poi = inputs.court((128, 72))
@@ -85,3 +92,35 @@ def test_train_step_matches_the_port(config):
     gap, leaf, _ = checks.norm_gap(grads, ref_grads, set(ref_grads) - set(live))
     # clipped gradients of one f32 step; BatchNorm's centred sums differ by rounding
     assert gap < 1e-2, (gap, leaf)
+
+
+# sha256 over each key, dtype, shape and bytes of seeded_state_dict at seed
+# 2**31 + 17 on the CPU: the runs of a cell keep their weights bit for bit
+DIGESTS = {"flagship": "378709ebfc30f062435bd41daadbfc8c39eaf7f980d825872a0059a6227e7dd9",
+           "bilinear-r50": "6e8c0b75dc958af044a24cf6e7785b925b08aab3e2e74f6fc6a4a22ece760bea"}
+
+
+@pytest.mark.parametrize("config", sorted(DIGESTS))
+def test_the_seeded_weights_are_pinned(config):
+    model = json.loads((BENCH / "configs" / f"{config}.json").read_text())["model"]
+    h = hashlib.sha256()
+    for k, v in inputs.seeded_state_dict(model, 2 ** 31 + 17, "cpu").items():
+        h.update(k.encode())
+        h.update(str(v.dtype).encode())
+        h.update(str(tuple(v.shape)).encode())
+        h.update(v.contiguous().numpy().tobytes())
+    assert h.hexdigest() == DIGESTS[config]
+
+
+def test_the_residual_branches_last_batchnorm_is_found_in_every_trunk():
+    for resnet, last in (("resnet18", "bn2"), ("resnext101_32x8d", "bn3")):
+        skeleton = inputs.reference_model(dict(_model_cfg("flagship"), resnet_name=resnet))
+        found = inputs._residual_last(skeleton)
+        blocks = {n for n, _ in skeleton.named_modules()
+                  if n.count(".") == 2 and n.startswith("resnet_reg.layer")}
+        assert found == {f"{b}.{last}" for b in blocks}
+
+
+def test_an_unknown_trunk_raises_a_key_error_that_lists_the_known_ones():
+    with pytest.raises(KeyError, match="resnext101_32x8d"):
+        inputs.reference_model(dict(_model_cfg("flagship"), resnet_name="resnet52"))

@@ -3,11 +3,13 @@ metric and kernel group are files of their own plus entries in
 BENCHMARK.json, and no other file changes."""
 import json
 import shutil
+import time
 
 import pytest
 
+import counts
 import harness
-from conftest import BENCH, REPO, WORKLOADS
+from conftest import BENCH, REPO, WORKLOADS, cut, driver_of
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
@@ -96,3 +98,55 @@ def test_every_metric_reader_reads_nothing_from_an_empty_run():
     for path in sorted((BENCH / "metrics").glob("*.py")):
         reader = harness.load_module(path, "bm_empty_" + path.stem.replace(".", "_"))
         assert reader.read(run) is None, path.name
+
+
+def test_a_resnext_configuration_runs_from_new_files_alone(tmp_path):
+    """The flagship with the ResNeXt-101 32x8d STN, as a configuration file,
+    a limits file and BENCHMARK.json entries in a copy: it resolves, seeds,
+    counts, and its predict driver runs correct at tiny sizes."""
+    root = tmp_path / "repo"
+    shutil.copytree(BENCH, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    bench_dir = root / "benchmark"
+    before = {p.relative_to(root): p.read_bytes() for p in root.rglob("*") if p.is_file()}
+    cfg = json.loads((bench_dir / "configs" / "flagship.json").read_text())
+    cfg["model"]["resnet_name"] = "resnext101_32x8d"
+    (bench_dir / "configs" / "flagship-rx101.json").write_text(json.dumps(cfg))
+    name = "flagship-rx101.predict.b32"
+    (bench_dir / "limits" / f"{name}.json").write_text(
+        (bench_dir / "limits" / "flagship.predict.b32.json").read_text())
+    bench = harness.load_benchmark(REPO)
+    bench["configs"].append({"name": "flagship-rx101", "source": "arXiv:1611.05431",
+                             "file": "benchmark/configs/flagship-rx101.json", "reduced": [],
+                             "why": "x"})
+    bench["workloads"].append({"name": name, "config": "flagship-rx101",
+                               "traffic": "predict.b32", "chips": 1, "why": "x"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "flagship.predict.b32" in m.get("workloads", []):
+            m["workloads"].append(name)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cell = harness.resolve(root, name, root=bench_dir)
+    model = cell.config["model"]
+    assert 2 * sum(la.macs for la in counts.model_layers(model)
+                   if la.kind.startswith("stn")) / 1e9 == pytest.approx(155.2, abs=0.1)
+    assert counts.forward_flops(model) / 1e9 == pytest.approx(338.1 + 155.2, abs=0.2)
+    assert [m["name"] for m in cell.per_layer] == [
+        m["name"] for m in harness.resolve(REPO, "flagship.predict.b32").per_layer]
+
+    cell = cut(cell)
+    r = harness.Run(cell, 2 ** 31 + 23, 1.0, False, "cpu", time.perf_counter_ns())
+    driver_of(cell).run(r)
+    line = harness.result_line(r, "cpu", 1)
+    assert line["correct"] and set(line["checks"]) == {"theta_gap", "warp_mismatch"}, line
+    # the per-layer readers read the new cell's counts from a trace
+    r.trace_summary = {"busy_s": 0.9, "window_s": 1.0, "kernels": 10,
+                       "op_seconds": {"conv3x3": 0.5}, "device_by_span": {"model.stn": 0.3}}
+    r.peaks = harness.peaks_for("NVIDIA H100 80GB HBM3")
+    got = r.per_layer_metrics()
+    frames = r.counters["frames_issued"]
+    assert got["mfu.predict"]["value"] == pytest.approx(
+        100 * counts.forward_flops(r.config["model"]) * frames / r.peaks["fp32_flops"])
+    assert got["stn_device_share.predict"]["value"] == pytest.approx(100 * 0.3 / 0.9)
+    assert got["conv3x3_roofline.predict"]["value"] > 0
+    changed = [p for p, data in before.items() if (root / p).read_bytes() != data]
+    assert changed == []

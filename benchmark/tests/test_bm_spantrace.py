@@ -1,6 +1,7 @@
 """Device time and idle gaps by the program's own spans (``spantrace``,
-``devtrace``), on synthetic trace events and, with a card, on one traced
-flagship predict batch."""
+``devtrace``, ``harness.Run.reduce_trace``), on synthetic trace events
+and, with a card, on one traced flagship predict batch; the program's
+spans recorded in a traced run alone."""
 import collections
 import time
 
@@ -8,8 +9,10 @@ import pytest
 
 import devtrace
 import harness
+import program
+import readers
 import spantrace
-from conftest import BENCH, REPO
+from conftest import BENCH, REPO, driver_of, tiny_run
 
 MARKER = "void at::spin_kernel(long)"
 
@@ -85,6 +88,12 @@ class _Event:
         return self._v[4]
 
 
+def _prof(events):
+    """A stopped profiler's shape around ``events``."""
+    return collections.namedtuple("P", "profiler")(collections.namedtuple("K", "kineto_results")(
+        collections.namedtuple("R", "events")(lambda: events)))
+
+
 def test_trace_events_pair_each_kernel_with_its_earliest_host_event():
     events = [_Event(False, "cudaLaunchKernel", 100, 50, 6),
               _Event(False, "Lazy Function Loading", 120, 10, 6),
@@ -92,9 +101,7 @@ def test_trace_events_pair_each_kernel_with_its_earliest_host_event():
               _Event(True, "spin_kernel", 500, 20, 6),
               _Event(False, "cudaMemcpyAsync", 600, 5, 8),
               _Event(True, "Memcpy DtoH (Device -> Pinned)", 610, 30, 8)]
-    prof = collections.namedtuple("P", "profiler")(collections.namedtuple("K", "kineto_results")(
-        collections.namedtuple("R", "events")(lambda: events)))
-    device, launches = spantrace.trace_events(prof)
+    device, launches = spantrace.trace_events(_prof(events))
     assert device == [(500, 520, "spin_kernel", 6), (610, 640, "Memcpy DtoH (Device -> Pinned)", 8)]
     assert launches == {6: 100, 8: 600}
 
@@ -130,6 +137,101 @@ def test_an_idle_gap_inside_a_program_span_is_charged_to_it():
     assert after["idle_by_span"] == pytest.approx({"model.unet": 20e-6, "predict.batch": 20e-6})
     assert {k: v for k, v in after.items() if k != "idle_by_span"} == \
         {k: v for k, v in before.items() if k != "idle_by_span"}
+
+
+class _NoTrace:
+    """A device trace that records nothing (the CPU has none)."""
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+
+@pytest.mark.parametrize("trace", [True, False])
+def test_the_programs_spans_are_recorded_in_a_traced_run_alone(trace, monkeypatch):
+    from sports_field_homography_tpu_torch.utils import trace as ptrace
+
+    started = []
+    real_start = program.start_spans
+    monkeypatch.setattr(program, "start_spans", lambda: started.append(1) or real_start())
+    monkeypatch.setattr(harness.bmtrace, "DeviceTrace", _NoTrace)
+    cell, r = tiny_run("flagship.predict.b32", seconds=0.5)
+    r.trace = trace
+    r.spans.enabled = trace
+    driver_of(cell).run(r)
+    assert r.correct
+    assert ptrace.span("model.stn") is ptrace.span("model.unet")     # the shared no-op
+    if not trace:
+        assert started == [] and r.program_spans == [] and r.spans.items == []
+        return
+    assert started == [1]
+    names = {rec[0] for rec in r.program_spans}
+    assert {"predict.batch", "model.unet", "model.stn", "model.warp",
+            "predict.to_host"} <= names
+    t0, t1 = r.t_window
+    assert all(t0 <= a <= b <= t1 for _, a, b, _, _ in r.program_spans)
+
+
+def test_reduce_trace_gives_device_time_and_gaps_to_the_innermost_span():
+    """The driver's spans and the program's: each kernel goes to the
+    innermost span open at its launch, each idle gap to the one open at its
+    middle; ``stn_device_share.predict`` reads ``model.stn`` over busy."""
+    off = 4_000_000                  # trace clock - host clock at a launch
+    run_at = off + 500               # and at a kernel's start on the card
+
+    def kernel(name, launch, start, end, corr):
+        host = [_Event(False, "cudaLaunchKernel", launch + off, 3, corr)] if launch else []
+        return host + [_Event(True, name, start + run_at, end - start, corr)]
+
+    events = (kernel("void at::spin_kernel(long)", 1_000, 1_000, 1_200, 1)
+              + kernel("conv3x3_sm90_kernel", 13_000, 20_000, 40_000, 2)
+              + kernel("cudnn::engine", 31_000, 40_000, 60_000, 3)
+              + kernel("elementwise_kernel", 45_000, 60_000, 70_000, 4)
+              + kernel("warp_nearest", 52_000, 75_000, 80_000, 5)
+              + kernel("Memcpy DtoH (Device -> Pinned)", 62_000, 80_000, 90_000, 6)
+              + kernel("unlaunched", None, 90_000, 95_000, 7))
+    cell = harness.resolve(REPO, "flagship.predict.b32")
+    r = harness.Run(cell, 1, 1.0, True, "cpu", 0)
+    r.device_trace = devtrace.DeviceTrace()
+    r.device_trace.prof, r.device_trace.t_marker = _prof(events), 1_000
+    r.t_window = [10_000, 110_000]
+    for name, a, b in (("predict_fn", 10_000, 60_000), ("to_host", 60_000, 80_000),
+                       ("wait", 80_000, 110_000)):
+        r.spans.add(name, a, b)
+    r.program_spans = [("predict.batch", 11_000, 59_000, None, 0),
+                       ("model.unet", 12_000, 30_000, 0, 0),
+                       ("model.stn", 30_000, 50_000, 0, 0),
+                       ("model.warp", 50_000, 58_000, 0, 0),
+                       ("predict.to_host", 61_000, 79_000, None, 4)]
+    r.reduce_trace()
+    ts = r.trace_summary
+    assert ts["busy_s"] == pytest.approx(70e-6) and ts["window_s"] == pytest.approx(100e-6)
+    assert ts["device_by_span"] == pytest.approx({"model.unet": 20e-6, "model.stn": 30e-6,
+                                                  "model.warp": 5e-6,
+                                                  "predict.to_host": 10e-6})
+    assert ts["device_unattributed_s"] == pytest.approx(5e-6)
+    assert ts["idle_by_span"] == pytest.approx({"model.unet": 10e-6,
+                                                "predict.to_host": 5e-6, "wait": 15e-6})
+    reader = harness.load_module(BENCH / "metrics" / "stn_device_share.predict.py",
+                                 "bm_test_stn_device_share")
+    assert reader.read(r) == pytest.approx(100 * 30 / 70)
+    line = harness.result_line(r, "cpu", 1)
+    assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+def test_span_share_reads_a_span_over_busy_time_and_nothing_where_it_is_absent():
+    cell = harness.resolve(REPO, "bilinear-r50.predict.b32")
+    r = harness.Run(cell, 1, 1.0, True, "cpu", 0)
+    assert readers.span_share(r, "model.stn") is None               # no trace
+    r.trace_summary = {"busy_s": 8.0, "window_s": 10.0,
+                       "device_by_span": {"model.stn": 2.064, "model.unet": 5.0}}
+    assert readers.span_share(r, "model.stn") == pytest.approx(25.8)
+    assert readers.span_share(r, "model.unet") == pytest.approx(62.5)
+    assert readers.span_share(r, "train.backward") is None         # no such span
+    r.trace_summary = {"busy_s": 8.0, "window_s": 10.0}              # spans not recorded
+    assert readers.span_share(r, "model.stn") is None
 
 
 @pytest.mark.cuda
